@@ -10,7 +10,7 @@ Two equivalent styles are shown:
 * ``StepInterpolator`` — pointwise, the literal analogue of the Rust
   example: write the math for ONE query point, inherit vectorization from
   ``vmap`` via :class:`PointwiseStrategy`.
-* ``StepInterpolatorBatched`` — TPU-idiomatic: write the math for the
+* ``StepInterpolatorBatched`` — batched: write the math for the
   whole flat query batch directly.
 
 Run: ``python examples/custom_strategy.py``
@@ -53,7 +53,7 @@ class StepInterpolator(PointwiseStrategy):
 
 @register_pytree_node_class
 class StepInterpolatorBatched(Interp1DStrategy, Interp1DStrategyBuilder):
-    """Same semantics, written batched (the TPU-native shape)."""
+    """Same semantics, written batched (the accelerator-friendly shape)."""
 
     MINIMUM_DATA_LENGTH = 2
     extrapolates = True

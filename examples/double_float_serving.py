@@ -1,13 +1,11 @@
-"""f64-grade serving on f32 TPUs with the double-float evaluator.
+"""f64-grade serving in f32 arithmetic with the double-float evaluator.
 
-TPU f64 is emulated and slow; the double-float path represents every
-value as an (hi, lo) float32 pair (~49 mantissa bits) and evaluates with
-error-free transforms — ≤1e-12 scale-relative vs the f64 oracle on chip
-at ~1.23× the f32 kernel's cost (BASELINE.md).
+The double-float path represents every value as an (hi, lo) float32 pair
+(~49 mantissa bits) and evaluates with error-free transforms — ≤1e-12
+scale-relative vs the f64 oracle (``chip_smoke.py`` phase P5 gates this
+on the GPU).
 
 Run: python examples/double_float_serving.py
-(on a CPU backend the evaluator uses the plain-XLA double-float
-formulation — same accuracy, no Pallas).
 """
 
 import sys

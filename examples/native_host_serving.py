@@ -1,11 +1,11 @@
 """CPU-host serving with the native C++ runtime.
 
-The TPU (XLA/Pallas) path owns batched device workloads; hosts without
-an accelerator — or latency-critical scalar lookups where device
-dispatch would dominate — serve through the native runtime instead
-(``ndarray_interp_tpu.native``): AVX-512 guess/verify/gather blocks for
-flat linear/Hermite banks (~4 ns/query f64 on the bench host), plus
-batched bilinear and bicubic (node-state nested Hermite, ~90 ns/query).
+The device (XLA) path owns batched workloads; hosts without an
+accelerator — or latency-critical scalar lookups where device dispatch
+would dominate — serve through the native runtime instead
+(``ndarray_interp_tpu.native``): even-spacing guess/verify blocks for
+flat linear/Hermite banks (AVX-512 gathers where the compiler targets
+them), plus batched bilinear and bicubic (node-state nested Hermite).
 The eager scalar entry points (``interp_scalar``) pick the native path
 automatically when it is available.
 

@@ -5,9 +5,9 @@ sharded over a mesh, bf16 query streams against f32 coefficients.
 
 Construction (the batched Thomas solve) is elementwise across the bank, so
 the bank axis shards with zero communication; queries broadcast to every
-device, which evaluates its own shard of splines.  On real hardware the
-mesh spans chips over ICI; here it runs on whatever devices exist
-(8 virtual CPU devices under the test harness, one TPU on the bench host).
+device, which evaluates its own shard of splines.  On a multi-GPU host
+the mesh spans the cards; here it runs on whatever devices exist
+(8 virtual CPU devices with the command below).
 
 Run: ``XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu \
       python examples/spline_bank_sharded.py``

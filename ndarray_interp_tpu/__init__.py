@@ -1,7 +1,8 @@
-"""ndarray-interp-tpu — a TPU-native (JAX/XLA/Pallas) interpolation framework.
+"""ndarray-interp-tpu — a JAX/XLA interpolation framework for accelerators.
 
 A ground-up rebuild of the capabilities of the Rust crate
-``ndarray-interp`` v0.6.0 (``/root/reference``), designed TPU-first:
+``ndarray-interp`` v0.6.0 (``/root/reference``), designed for batched
+accelerator execution:
 
 * interpolators are registered pytrees — they flow through ``jit`` /
   ``vmap`` / ``grad`` / ``pjit`` directly,

@@ -9,7 +9,7 @@ Reference: ``/root/reference/src/interp2d/mod.rs``.  Semantics preserved:
   dims ``M + N - 2`` with the query dims leading (``mod.rs:175-211``),
 * builder validation order and messages (``mod.rs:468-518``).
 
-TPU-native design mirrors :mod:`.interp1d`: the interpolator is a pytree,
+The design mirrors :mod:`.interp1d`: the interpolator is a pytree,
 the pure ``__call__`` is jittable, the eager API adds host-side checks.
 """
 

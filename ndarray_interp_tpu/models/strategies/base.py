@@ -5,7 +5,7 @@ Reference: the trait pair ``Interp1DStrategyBuilder`` / ``Interp1DStrategy``
 contract is *pointwise*: the driver iterates queries and the strategy writes
 one point's result (data shape minus the interp axis) into a mutable view.
 
-TPU-native contract: the driver hands the strategy the whole flattened query
+Batched contract: the driver hands the strategy the whole flattened query
 vector at once and the strategy returns the batched result — queries are
 data-parallel lanes, not a host loop.  The guarantees the driver provides
 before calling (mirroring ``strategies/mod.rs:26-32``) are unchanged:
@@ -59,19 +59,6 @@ class Interp1DStrategy:
         Must be jit/vmap-safe and return ``(Q, *data.shape[1:])``.
         """
         raise NotImplementedError
-
-    def with_data_finite(self, finite: bool) -> "Interp1DStrategy":
-        """Return a strategy marked with whether the data values are all
-        finite (a *static* routing hint, part of pytree aux).
-
-        The eager builder calls this after checking the host copy of the
-        data: non-finite data values must not ride the TPU one-hot MXU
-        selection paths, where ``NaN * 0 == NaN`` poisons unrelated queries
-        (see docs/PARITY.md D5).  The default keeps the strategy unchanged —
-        strategies that never use one-hot selection can ignore the hint.
-        """
-        del finite
-        return self
 
 
 class PointwiseStrategy(Interp1DStrategy, Interp1DStrategyBuilder):

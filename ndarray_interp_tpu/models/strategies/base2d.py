@@ -6,7 +6,7 @@ strictly monotonically rising, ``len(x) == data.shape[0]``,
 ``len(y) == data.shape[1]``, both at least ``MINIMUM_DATA_LENGTH``;
 interpolation happens along axes 0 (x) and 1 (y).
 
-As in the 1-D protocol, the TPU-native contract is batched: strategies
+As in the 1-D protocol, the contract is batched: strategies
 receive the whole flattened query vectors at once.
 """
 

@@ -19,15 +19,11 @@ interpolate ``f`` and ``ky`` along x at both bracketing y-knots (using
 with SciPy's ``RegularGridInterpolator(method="cubic")`` (tensor
 not-a-knot) to oracle tolerance — see ``tests/test_bicubic.py``.
 
-TPU shape: both ``(idx, t)`` passes ride the fused Pallas kernel; the
-16-corner state — derivatives PRE-SCALED by their cell's interval
-widths, so the row needs no endpoint channels — is packed into ONE
-lane-aligned gathered row per query (the gather engine charges per row,
-not per byte, up to ~1 KB — docs/ROADMAP.md).  Grids whose cell table
-would exceed ``config.bicubic_pack_max_elems`` (~17x data memory) build
-a memory-frugal node table instead (~4x, 4 corner gathers/query).
-Measured NS3b anatomy: ``benches/ablate_bicubic*.py`` and
-docs/ROADMAP.md.
+Evaluation layout: the 16-corner state — derivatives PRE-SCALED by
+their cell's interval widths, so the row needs no endpoint channels — is
+packed into ONE gathered row per query.  Grids whose cell table would
+exceed ``config.bicubic_pack_max_elems`` (~17x data memory) build a
+memory-frugal node table instead (~4x, 4 corner gathers/query).
 """
 
 from __future__ import annotations
@@ -65,11 +61,12 @@ _AXIS_KINDS = {
 def _solve_axis0(x, grid, bc, validate=False):
     """Spline derivative solve along axis 0 with a named boundary kind.
 
-    Wide grids take the dense-operator route on TPU (``cubic._dense_k``:
-    the solve probed once on an identity bank, applied as one
-    ``Precision.HIGHEST`` matmul — every axis kind here is uniform with
-    zero payload, so the map is linear; see ``config.dense_build_max_n``).
-    CPU keeps the reference-order scan solver."""
+    Off the CPU, wide grids on short axes take the dense-operator route
+    (``cubic._dense_k``: the solve probed once on an identity bank,
+    applied as one ``Precision.HIGHEST`` matmul — every axis kind here is
+    uniform with zero payload, so the map is linear; see
+    ``cubic._DENSE_BUILD_MAX_N``).  The CPU keeps the reference-order
+    scan solver."""
     periodic = bc == "periodic"
     if periodic and validate:
         _validate_periodic_data(grid)
@@ -80,9 +77,9 @@ def _solve_axis0(x, grid, bc, validate=False):
         return jax.lax.platform_dependent(
             x,
             grid,
-            tpu=functools.partial(_dense_k, kind=kind, periodic=periodic),
+            cpu=functools.partial(_k_xla, kind=kind, periodic=periodic),
             default=functools.partial(
-                _k_xla, kind=kind, periodic=periodic
+                _dense_k, kind=kind, periodic=periodic
             ),
         )
     if periodic:
@@ -91,7 +88,7 @@ def _solve_axis0(x, grid, bc, validate=False):
 
 
 def _k_xla(x, grid, kind, periodic):
-    """Non-dense twin of the per-axis k-solve (platform default)."""
+    """Non-dense twin of the per-axis k-solve (the CPU route)."""
     if periodic:
         return _solve_periodic_core(x, grid)
     return _solve_for_k(x, grid, kind, 0.0, kind, 0.0)
@@ -206,32 +203,14 @@ def _cell_tail_nested(g, tx, ty, r):
 
 
 def _index_frac(knots, q):
-    """``(get_lower_index(q), t)``: the fused Pallas pass on TPU for
-    eligible f32 axes, the XLA gather form elsewhere (same values, same
-    ``calc_frac`` operand order)."""
-    import jax
-
-    from ... import config
-    from ...ops.pallas_eval import _plan, fused_index_frac
+    """``(get_lower_index(q), t)`` with the ``calc_frac`` operand order
+    (``t = (q - x_l) / (x_r - x_l)``)."""
     from ...ops.searchsorted import get_lower_index
 
-    def xla(q):
-        idx = get_lower_index(knots, q)
-        x_l = knots[idx]
-        x_r = knots[idx + 1]
-        return idx, (q - x_l) / (x_r - x_l)
-
-    if (
-        config.use_fused_kernel
-        and q.dtype == jnp.float32
-        and knots.dtype == jnp.float32
-        and knots.shape[0] >= 4
-        and _plan(knots.shape[0]) is not None
-    ):
-        return jax.lax.platform_dependent(
-            q, tpu=lambda q: fused_index_frac(knots, q), default=xla
-        )
-    return xla(q)
+    idx = get_lower_index(knots, q)
+    x_l = knots[idx]
+    x_r = knots[idx + 1]
+    return idx, (q - x_l) / (x_r - x_l)
 
 
 def bicubic_node_grids(x, y, data, bc_x="not_a_knot", bc_y="not_a_knot"):
@@ -252,10 +231,7 @@ def pack_bicubic_rows(x, y, data, kx, ky, kxy):
     corners, trailing-flattened) with derivatives PRE-SCALED by their
     cell's interval widths (``kx*dx``, ``ky*dy``, ``kxy*dx*dy``) —
     everything one query needs in ONE gathered row, with no endpoint
-    channels (``t`` comes from the bucketize pass).  16r channels: for
-    the NS3b grid that is a 1024-byte, lane-aligned row — measured
-    ~1.8 ms/1M queries cheaper to gather than the round-2 (16r+4)-channel
-    layout (benches/ablate_bicubic.py stages B vs E)."""
+    channels (``t`` comes from the bucketize pass): 16r channels."""
     nx, ny = data.shape[0], data.shape[1]
     r = 1
     for s in data.shape[2:]:
@@ -447,17 +423,7 @@ class BicubicStrategy(Interp2DStrategy):
         )
 
     def _eval_cell(self, data, xi, yi, tx, ty, qshape):
-        """ONE pre-scaled 16r-channel row gather + nested XLA Hermite tail.
-
-        The tail stays in XLA deliberately: a streaming Mosaic
-        weight-form tail (``ops.pallas_tail.bicubic_gathered_eval``)
-        was built and measured at 30.0 ms/1M on the NS3b workload vs
-        15.6 ms for this body (and 27.7 ms for a lane-packed variant) —
-        the kernel cannot undo the gather-fusion boundary (the gathered
-        GB is materialized either way) and adds its own block overheads,
-        so the re-stream analysis in docs/ROADMAP.md stands as the
-        route's floor.  The kernel remains in ops/pallas_tail.py as the
-        tested record."""
+        """ONE pre-scaled 16r-channel row gather + nested Hermite tail."""
         ny = data.shape[1]
         trailing = data.shape[2:]
         r = 1

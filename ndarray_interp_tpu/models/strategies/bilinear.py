@@ -5,10 +5,7 @@ Stateless config in the reference; evaluation per point is: two range
 checks, two searchsorteds, four corner lookups, then two x-direction
 lerps followed by one y-direction lerp (``bilinear.rs:64-98``).  Here the
 whole query batch does this at once: two bucketizes + one 4-corner gather
-+ three fused lerps.  When built through the builder on floating data,
-the finished strategy precomputes the packed corner-row table (all four
-corners + the interval endpoints per cell) so evaluation is exactly one
-row gather per query — :class:`BilinearPacked`.
++ three fused lerps.
 """
 
 from __future__ import annotations
@@ -18,40 +15,6 @@ from jax.tree_util import register_pytree_node_class
 
 from ...ops.lerp import calc_frac
 from .base2d import Interp2DStrategy, Interp2DStrategyBuilder
-
-
-def pack_corner_rows(x, y, data):
-    """Packed per-cell rows: 4 corner blocks (contiguous — a corner-minor
-    layout would force strided relayouts) + the 4 interval endpoints.
-    Everything a query needs is then ONE contiguous row gather; even the
-    four scalar endpoint gathers measured ~20 ms/1M queries as separate
-    XLA ops."""
-    nx, ny = data.shape[0], data.shape[1]
-    trailing = data.shape[2:]
-    r = 1
-    for s_ in trailing:
-        r *= s_
-    quad = jnp.stack(
-        [data[:-1, :-1], data[:-1, 1:], data[1:, :-1], data[1:, 1:]],
-        axis=2,
-    ).reshape(nx - 1, ny - 1, 4 * r)
-    ends = jnp.stack(
-        [
-            jnp.broadcast_to(x[:-1, None], (nx - 1, ny - 1)),
-            jnp.broadcast_to(x[1:, None], (nx - 1, ny - 1)),
-            jnp.broadcast_to(y[None, :-1], (nx - 1, ny - 1)),
-            jnp.broadcast_to(y[None, 1:], (nx - 1, ny - 1)),
-        ],
-        axis=-1,
-    ).astype(data.dtype)
-    return jnp.concatenate([quad, ends], axis=-1).reshape(
-        (nx - 1) * (ny - 1), 4 * r + 4
-    )
-
-
-# precompute the packed table at build only below this data size (the
-# table quadruples the grid's memory)
-_PACK_MAX_ELEMS = 64 * 1024 * 1024
 
 
 @register_pytree_node_class
@@ -66,81 +29,26 @@ class Bilinear(Interp2DStrategy, Interp2DStrategyBuilder):
         return Bilinear(extrapolate=yes)
 
     def build(self, x, y, data):
-        if (
-            jnp.issubdtype(data.dtype, jnp.floating)
-            and x.dtype == data.dtype
-            and data.size <= _PACK_MAX_ELEMS
-        ):
-            return BilinearPacked(
-                pack_corner_rows(x, y, data), self.extrapolates
-            )
         return self
 
     def eval(self, interp, xq, yq):
-        # NOTE round-2 negative result (measured on v5e, NS3 workload):
-        # the "fully fused" gather route — fused_cell_index + one packed
-        # gather + a streaming Pallas lerp tail (ops/pallas_tail.py,
-        # kept with tests) — measured 18.2 ms vs 8.2 ms for this
-        # separated path.  Anatomy: the cell kernel costs 1.8 ms vs
-        # 0.6 ms for two fused_lower_index passes (confirming round 1's
-        # measurement), and the Pallas tail on 68-lane unaligned blocks
-        # runs at ~43 GB/s (7.9 ms) vs ~1.9 ms for XLA's fused lerps.
-        # The packed-row gather's ~6 ms is the hardware floor either way
-        # (docs/ROADMAP.md, gather-engine wall).
-        import jax
-
-        from ...ops.searchsorted import lower_index_fast
+        from ...ops.searchsorted import get_lower_index
 
         x, y, data = interp.x, interp.y, interp.data
-        # two-level Pallas bucketize on TPU (~4x the flat compare-and-count)
-        xi = lower_index_fast(x, xq)
-        yi = lower_index_fast(y, yq)
-
-        def tpu_corners(xi, yi):
-            # one packed-row gather per query (see pack_corner_rows);
-            # packed at build when possible, else assembled here (fused
-            # into the surrounding program by XLA)
-            ny = data.shape[1]
-            trailing = data.shape[2:]
-            r = 1
-            for s in trailing:
-                r *= s
-            rows = self._rows()
-            if rows is None:
-                rows = pack_corner_rows(x, y, data)
-            flat = xi * (ny - 1) + yi
-            g2 = jnp.take(rows, flat, axis=0)
-            out_shape = flat.shape + trailing
-            return (
-                g2[:, 0 * r : 1 * r].reshape(out_shape),
-                g2[:, 1 * r : 2 * r].reshape(out_shape),
-                g2[:, 2 * r : 3 * r].reshape(out_shape),
-                g2[:, 3 * r : 4 * r].reshape(out_shape),
-                g2[:, 4 * r],
-                g2[:, 4 * r + 1],
-                g2[:, 4 * r + 2],
-                g2[:, 4 * r + 3],
-            )
-
-        def default_corners(xi, yi):
-            # 4-corner gather, (Q, *data.shape[2:]) each
-            return (
-                data[xi, yi],
-                data[xi, yi + 1],
-                data[xi + 1, yi],
-                data[xi + 1, yi + 1],
-                x[xi].astype(data.dtype),
-                x[xi + 1].astype(data.dtype),
-                y[yi].astype(data.dtype),
-                y[yi + 1].astype(data.dtype),
-            )
-
-        if jnp.issubdtype(data.dtype, jnp.floating) and x.dtype == data.dtype:
-            z11, z12, z21, z22, x1, x2, y1, y2 = jax.lax.platform_dependent(
-                xi, yi, tpu=tpu_corners, default=default_corners
-            )
-        else:
-            z11, z12, z21, z22, x1, x2, y1, y2 = default_corners(xi, yi)
+        xi = get_lower_index(x, xq)
+        yi = get_lower_index(y, yq)
+        # 4-corner gather, (Q, *data.shape[2:]) each.  A packed per-cell
+        # corner-row table (one row gather per query, 5x the grid's
+        # memory) was slower on an H100: 0.41 vs 0.35 ms per 1M queries
+        # on a (1024, 1024, 4) f32 grid.
+        z11 = data[xi, yi]
+        z12 = data[xi, yi + 1]
+        z21 = data[xi + 1, yi]
+        z22 = data[xi + 1, yi + 1]
+        x1 = x[xi].astype(data.dtype)
+        x2 = x[xi + 1].astype(data.dtype)
+        y1 = y[yi].astype(data.dtype)
+        y2 = y[yi + 1].astype(data.dtype)
 
         expand = xq.shape + (1,) * (data.ndim - 2)
 
@@ -164,11 +72,11 @@ class Bilinear(Interp2DStrategy, Interp2DStrategyBuilder):
             raise ValueError(
                 f"derivative orders must be in 0..3; got dx={dx}, dy={dy}"
             )
-        from ...ops.searchsorted import lower_index_fast
+        from ...ops.searchsorted import get_lower_index
 
         x, y, data = interp.x, interp.y, interp.data
-        xi = lower_index_fast(x, xq)
-        yi = lower_index_fast(y, yq)
+        xi = get_lower_index(x, xq)
+        yi = get_lower_index(y, yq)
         z11 = data[xi, yi]
         z12 = data[xi, yi + 1]
         z21 = data[xi + 1, yi]
@@ -224,9 +132,6 @@ class Bilinear(Interp2DStrategy, Interp2DStrategyBuilder):
             data = data.astype(bt)
         return fn((x.astype(bt), y.astype(bt)), data, los, his)
 
-    def _rows(self):
-        return None
-
     def tree_flatten(self):
         return (), (self.extrapolates,)
 
@@ -237,29 +142,3 @@ class Bilinear(Interp2DStrategy, Interp2DStrategyBuilder):
 
     def __repr__(self):
         return f"Bilinear(extrapolate={self.extrapolates})"
-
-
-@register_pytree_node_class
-class BilinearPacked(Bilinear):
-    """Finished bilinear strategy with the corner-row table precomputed at
-    build time (one row gather per query, no per-call table assembly)."""
-
-    def __init__(self, rows, extrapolate: bool = False):
-        super().__init__(extrapolate)
-        self.rows = rows
-
-    def _rows(self):
-        return self.rows
-
-    def tree_flatten(self):
-        return (self.rows,), (self.extrapolates,)
-
-    @classmethod
-    def tree_unflatten(cls, aux, children):
-        return cls(children[0], extrapolate=aux[0])
-
-    def __repr__(self):
-        return (
-            f"BilinearPacked(rows={getattr(self.rows, 'shape', None)}, "
-            f"extrapolate={self.extrapolates})"
-        )

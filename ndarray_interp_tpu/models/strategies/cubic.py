@@ -19,7 +19,7 @@ with four boundary-condition families plus per-row/per-side mixing:
   ``y = (1-t)·y_l + t·y_r + t(1-t)(a(1-t) + b t)`` (``:818-828``), with
   periodic wrap ``x = (x-x0).rem_euclid(xn-x0) + x0`` (``:804-809``).
 
-TPU-native differences:
+Differences from the reference:
 
 * One batched solve for the whole spline bank.  The reference's
   ``Individual`` mode recurses row by row (``:370-403``); here per-row
@@ -27,8 +27,9 @@ TPU-native differences:
   diagonals become batched, and a single Thomas scan solves every row
   simultaneously — identical per-element arithmetic, so f64 results match
   the reference bit-for-bit.
-* Construction is pure XLA (scan-based Thomas), so spline *building* can be
-  jitted/sharded just like evaluation.
+* Construction is pure XLA (reference-order scan Thomas on the CPU,
+  parallel cyclic reduction or a probed dense operator elsewhere), so
+  spline *building* can be jitted/sharded just like evaluation.
 """
 
 from __future__ import annotations
@@ -43,7 +44,7 @@ import jax.numpy as jnp
 from jax.tree_util import register_pytree_node_class
 
 from ...errors import BuilderValueError, ShapeError
-from ...ops.pallas_thomas import thomas_solve_fast
+from ...ops.thomas import thomas_solve_fast
 from .base import Interp1DStrategy, Interp1DStrategyBuilder
 
 # specialized boundary kinds (SingleBoundary after `specialize`,
@@ -195,6 +196,14 @@ def _solve_for_k(x, y, left_kind, left_val, right_kind, right_val):
     (``cubic_spline.rs:409-674``) with the boundary `match` replaced by
     vectorized selection.
     """
+    return thomas_solve_fast(
+        *_tridiag_system(x, y, left_kind, left_val, right_kind, right_val)
+    )
+
+
+def _tridiag_system(x, y, left_kind, left_val, right_kind, right_val):
+    """The diagonals and right-hand side ``(a_up, a_mid, a_low, rhs)``
+    of the knot-derivative system solved by :func:`_solve_for_k`."""
     n = x.shape[0]
     trailing = y.shape[1:]
     tr = len(trailing)
@@ -352,7 +361,7 @@ def _solve_for_k(x, y, left_kind, left_val, right_kind, right_val):
         a_mid = a_mid_1d.at[0].set(am0).at[n - 1].set(amn)
         a_low = a_low_1d.at[n - 1].set(aln)
 
-    return thomas_solve_fast(a_up, a_mid, a_low, rhs)
+    return a_up, a_mid, a_low, rhs
 
 
 def _validate_periodic_data(y):
@@ -370,13 +379,6 @@ def _validate_periodic_data(y):
                 "for periodic boundary condition the first and last value "
                 f"must be equal. First: {y0_host}, last: {ylast_host}"
             )
-
-
-def _solve_periodic(x, y):
-    """Periodic boundary: validation + condensed solve
-    (``cubic_spline.rs:480-565``)."""
-    _validate_periodic_data(y)
-    return _solve_periodic_core(x, y)
 
 
 @jax.jit
@@ -459,7 +461,7 @@ def _ab_from_k(x, data, k):
 
 
 # ---------------------------------------------------------------------------
-# dense-operator build (TPU wide-bank route)
+# dense-operator build (wide banks on short knot axes, off the CPU)
 # ---------------------------------------------------------------------------
 # For ONE shared knot axis and a uniform boundary family (zero derivative
 # payloads — every kind the named families and the per-axis 2-D/N-D solves
@@ -470,13 +472,20 @@ def _ab_from_k(x, data, k):
 # x-only), and the (a, b) coefficient pass are all linear maps y ↦ ·.
 # So the operator can be PROBED: run the existing pipeline once on an
 # identity bank (an (n, n) solve — tiny next to a wide bank) and apply the
-# resulting (m, n) matrix to the real bank as ONE MXU matmul at
-# ``Precision.HIGHEST`` (f32-faithful).  Traffic drops from ~log2(n)
-# full-bank passes (PCR) to read-y + write-out: measured 20.5 → 4.3 ms on
-# the NS5b build (64 knots × 1e6 splines, v5e).  Results differ from the
-# PCR/scan orders by normal f32 rounding only (~4e-7 relative, the same
-# order as PCR-vs-scan); the CPU path keeps the reference-order scan
-# solver bit-identical to ``cubic_spline.rs:678-721``.
+# resulting (m, n) matrix to the real bank as ONE matmul at
+# ``Precision.HIGHEST`` (true f32, never TF32).  Traffic drops from
+# ~log2(n) full-bank passes (PCR) to read-y + write-out, at O(n²·bank)
+# flops — so it wins only while the knot axis is short (on an H100 the
+# (64 knots × 1e6 splines) build took 1.2 ms dense vs 2.5 ms PCR, and
+# (2048 × 4096) 1.9 ms dense vs 0.71 ms PCR).  Results differ from the
+# PCR/scan orders by normal f32 rounding only (~4e-7 relative); the CPU
+# keeps the reference-order scan solver bit-identical to
+# ``cubic_spline.rs:678-721``.
+
+# largest knot count that takes the dense route: the H100 crossover
+# against PCR at 2^26 bank values lies between 256 knots (dense 2.3 ms,
+# PCR 2.9 ms) and 512 (dense 3.5 ms, PCR 3.2 ms)
+_DENSE_BUILD_MAX_N = 256
 
 
 def _dense_matmul(op, y):
@@ -522,7 +531,7 @@ def _dense_ab(x, y, kind, periodic):
 
 
 def _periodic_ab(x, y):
-    """Non-dense twin of the periodic build map (platform default)."""
+    """Non-dense twin of the periodic build map (the CPU route)."""
     return _ab_from_k(x, y, _solve_periodic_core(x, y))
 
 
@@ -532,17 +541,20 @@ def _uniform_ab(x, y, kind):
 
 
 def _dense_build_ok(n, trailing_size):
-    """Static eligibility for the dense route: uniform-boundary banks
-    wide enough that the O(n²·bank) MXU matmul beats PCR's O(n·log n)
-    streams (measured crossover ~1k knots on v5e; ``config``
-    knob), and wider than the (n, n) identity probe itself."""
-    from ... import config
+    """Static eligibility for the dense route: a short knot axis
+    (``n <= _DENSE_BUILD_MAX_N``) under a bank at least as wide as the
+    (n, n) identity probe itself."""
+    return n <= _DENSE_BUILD_MAX_N and trailing_size >= n
 
-    return (
-        getattr(config, "use_fused_kernel", True)
-        and n <= config.dense_build_max_n
-        and trailing_size >= n
-    )
+
+def _wrap_periodic(x, xq):
+    """``rem_euclid`` wrap of out-of-range queries onto the base period
+    (``cubic_spline.rs:804-809``)."""
+    x0 = x[0]
+    xn = x[x.shape[0] - 1]
+    wrapped = jnp.mod(xq - x0, xn - x0) + x0
+    in_r = (x0 <= xq) & (xq <= xn)
+    return jnp.where(in_r, xq, wrapped)
 
 
 # ---------------------------------------------------------------------------
@@ -593,11 +605,9 @@ class CubicSpline(Interp1DStrategyBuilder):
         (``cubic_spline.rs:310-368``)."""
         bc = self._boundary
         trailing = tuple(data.shape[1:])
-        # Run the solve on ONE flattened bank axis: XLA's TPU layouts tile
-        # the two minor dims to (8, 128), so multi-dim trailing shapes like
-        # (64, 64) pay lane padding/relayouts in every elementwise pass of
-        # the assembly (a (2048, 64, 64) build measured 4x slower than the
-        # same bank as (2048, 4096)).  Results are reshaped back.
+        # Run the solve on ONE flattened bank axis (one layout for every
+        # trailing shape; the dense route's matmul wants 2-D operands
+        # anyway).  Results are reshaped back.
         flat = len(trailing) > 1
         y = data.reshape((data.shape[0], -1)) if flat else data
         n = x.shape[0]
@@ -608,8 +618,10 @@ class CubicSpline(Interp1DStrategyBuilder):
                 c_a, c_b = jax.lax.platform_dependent(
                     x,
                     y,
-                    tpu=functools.partial(_dense_ab, kind=0, periodic=True),
-                    default=_periodic_ab,
+                    cpu=_periodic_ab,
+                    default=functools.partial(
+                        _dense_ab, kind=0, periodic=True
+                    ),
                 )
                 return self._unflatten_ab(c_a, c_b, trailing, flat)
             k = _solve_periodic_core(x, y)
@@ -647,10 +659,10 @@ class CubicSpline(Interp1DStrategyBuilder):
                 c_a, c_b = jax.lax.platform_dependent(
                     x,
                     y,
-                    tpu=functools.partial(
+                    cpu=functools.partial(_uniform_ab, kind=kind),
+                    default=functools.partial(
                         _dense_ab, kind=kind, periodic=False
                     ),
-                    default=functools.partial(_uniform_ab, kind=kind),
                 )
                 return self._unflatten_ab(c_a, c_b, trailing, flat)
             k = _solve_for_k(x, y, kind, 0.0, kind, 0.0)
@@ -671,237 +683,46 @@ class CubicSplineStrategy(Interp1DStrategy):
     """Finished cubic-spline strategy (``cubic_spline.rs:90-102``).
 
     Leaves: per-interval coefficient banks ``a``/``b`` with shape
-    ``(n-1, *data.shape[1:])``.  Static: extrapolation mode + the
-    data-finiteness routing hint (docs/PARITY.md D5).
+    ``(n-1, *data.shape[1:])``.  Static: the extrapolation mode.
     """
 
-    def __init__(self, a, b, mode: str = "no", finite: bool = True):
+    def __init__(self, a, b, mode: str = "no"):
         self.a = a
         self.b = b
         self.mode = mode  # "no" | "yes" | "periodic"
-        self.finite = bool(finite)
 
     @property
     def extrapolates(self) -> bool:
         return self.mode != "no"
 
-    def with_data_finite(self, finite: bool) -> "CubicSplineStrategy":
-        if bool(finite) == self.finite:
-            return self
-        return CubicSplineStrategy(self.a, self.b, self.mode, finite)
-
     def eval(self, interp, xq):
-        x = interp.x
         if self.mode == "periodic":
-            x0 = x[0]
-            xn = x[x.shape[0] - 1]
-            wrapped = jnp.mod(xq - x0, xn - x0) + x0
-            in_r = (x0 <= xq) & (xq <= xn)
-            xq = jnp.where(in_r, xq, wrapped)
-
-        from ... import config
-        from ...ops.pallas_eval import (
-            can_use_fused,
-            fused_eval_1d,
-            make_interval_table,
+            xq = _wrap_periodic(interp.x, xq)
+        _, _, t, y_l, y_r, a, b = self._interval_quantities(interp, xq)
+        one = jnp.ones((), y_l.dtype)
+        # symmetric Hermite, exact op order of cubic_spline.rs:818-828
+        return (
+            (one - t) * y_l
+            + t * y_r
+            + t * (one - t) * (a * (one - t) + b * t)
         )
-
-        if (
-            config.use_fused_kernel
-            and self.finite
-            and xq.dtype == jnp.float32
-            and can_use_fused(x, interp.data, (self.a, self.b))
-        ):
-            # platform selected at lowering time: the Pallas kernel on TPU,
-            # the XLA formulation everywhere else (incl. CPU-device meshes
-            # running under a TPU-default process)
-            return jax.lax.platform_dependent(
-                xq,
-                tpu=lambda q: fused_eval_1d(
-                    x, make_interval_table(x, interp.data, self.a, self.b), q
-                ),
-                default=lambda q: self._eval_xla(interp, q),
-            )
-
-        from ...ops.bigknots import big_eval_1d, can_use_big
-
-        if (
-            config.use_fused_kernel
-            and self.finite  # window mask-select poisons on NaN data (D5)
-            and xq.dtype == jnp.float32
-            and xq.ndim == 1
-            and can_use_big(x, interp.data)
-        ):
-            # n > 64k: hierarchical block search + one packed-row gather
-            # (ops/bigknots.py) — the windowed Pallas kernel's tables and
-            # per-query one-hot cost don't scale past 64k
-            return jax.lax.platform_dependent(
-                xq,
-                tpu=lambda q: big_eval_1d(
-                    x, interp.data, self.a, self.b, q
-                ),
-                default=lambda q: self._eval_xla(interp, q),
-            )
-        return self._eval_xla(interp, xq)
-
-    def _eval_xla(self, interp, xq):
-        from ... import config
-        from ...ops.searchsorted import lower_index_fast
-
-        x = interp.x
-        data = interp.data
-
-        def frac_default(xq):
-            idx = lower_index_fast(x, xq)
-            xpair = jnp.stack([x[:-1], x[1:]], axis=-1)  # (n-1, 2)
-            xg = xpair[idx]
-            tq = (xq - xg[..., 0]) / (xg[..., 1] - xg[..., 0])
-            return idx, tq
-
-        from ...ops.bigknots import MAX_BIG_KNOTS, big_lower_index_frac
-        from ...ops.pallas_eval import _plan
-
-        frac_eligible = (
-            getattr(config, "use_fused_kernel", True)
-            and xq.dtype == jnp.float32
-            and x.dtype == jnp.float32
-            and xq.ndim == 1
-            and x.shape[0] >= 4
-        )
-        small_n = _plan(x.shape[0]) is not None
-        big_n = 65536 < x.shape[0] <= MAX_BIG_KNOTS
-        if frac_eligible and (small_n or big_n):
-            import jax
-
-            from ...ops.pallas_eval import fused_index_frac
-
-            # one search pass emits idx AND t: the default path's
-            # xpair[idx] gather costs ~6 ns/query-row on the TPU gather
-            # engine (~6 ms per 1M queries)
-            tpu_frac = (
-                (lambda q: fused_index_frac(x, q))
-                if small_n
-                else (lambda q: big_lower_index_frac(x, q))
-            )
-            idx, tq = jax.lax.platform_dependent(
-                xq, tpu=tpu_frac, default=frac_default
-            )
-        else:
-            idx, tq = frac_default(xq)
-
-        def gather_form(idx, tq):
-            # One stacked row-gather instead of six scalar gathers: the
-            # interval table (n-1, *trailing, 4) costs O(n) to assemble
-            # (fused/hoisted by XLA); gather_rows picks take vs one-hot-MXU
-            # by table shape.
-            from ...ops.gather import gather_rows
-
-            tbl = jnp.stack(
-                [data[:-1], data[1:], self.a, self.b], axis=-1
-            )  # (n-1, *trailing, 4)
-            g = gather_rows(tbl, idx, assume_finite=self.finite)
-            y_left = g[..., 0]
-            y_right = g[..., 1]
-            a = g[..., 2]
-            b = g[..., 3]
-            expand = xq.shape + (1,) * (data.ndim - 1)
-            t = tq.reshape(expand)
-            one = jnp.ones((), data.dtype)
-            # symmetric Hermite, exact op order of cubic_spline.rs:818-828
-            return (
-                (one - t) * y_left
-                + t * y_right
-                + t * (one - t) * (a * (one - t) + b * t)
-            )
-
-        from ...ops.pallas_bank import banked_eval, can_use_banked
-        from ...ops.pallas_eval import _plan
-
-        kernels_on = getattr(config, "use_fused_kernel", True)
-        bank = 1
-        for s in data.shape[1:]:
-            bank *= s
-        n_pad = -(-(x.shape[0] - 1) // 128) * 128
-        # per-query cost model (v5e): the in-VMEM one-hot select burns
-        # n_pad*bank*12 MACs (12 bf16 passes at ~197 MACs/ns); the gather
-        # route pays the engine's ~6 ns/row floor or the row bytes at its
-        # ~300 GB/s effective rate, whichever binds — the banked kernel
-        # only wins while the knot axis is short
-        kernel_ns = n_pad * bank * 12 / 197_000.0
-        gather_ns = max(6.0, 4 * bank * 4 / 300.0)
-        banked_ok = (
-            kernels_on
-            and self.finite
-            and can_use_banked(x, data)
-            and jnp.issubdtype(xq.dtype, jnp.floating)
-        )
-        gather_ok = (
-            kernels_on
-            and data.ndim >= 2
-            and data.dtype == jnp.float32
-            and xq.dtype == jnp.float32
-            and x.dtype == jnp.float32
-            and xq.ndim == 1
-            and x.shape[0] >= 4
-            and (small_n or big_n)  # (idx, t) from a fused/big search pass
-        )
-        if banked_ok and (not gather_ok or kernel_ns <= gather_ns):
-            import jax
-
-            def banked_form(idx, tq):
-                # fused select+Hermite kernel: bit-identical to gather_form
-                # without materializing the 4-channel gathered intermediate
-                out = banked_eval(
-                    data,
-                    self.a,
-                    self.b,
-                    idx.reshape(-1),
-                    tq.reshape(-1).astype(data.dtype),
-                )
-                return out.reshape(xq.shape + data.shape[1:])
-
-            return jax.lax.platform_dependent(
-                idx, tq, tpu=banked_form, default=gather_form
-            )
-        if gather_ok:
-            import jax
-
-            from ...ops.pallas_tail import gathered_bank_eval
-
-            def gathered_form(idx, tq):
-                # one packed-row gather + streaming Hermite tail (covers
-                # the wide-bank/long-knot-axis regimes the MXU kernel
-                # can't: 10k-knot x 64-bank x 1M queries 26 ms -> ~8 ms)
-                n = data.shape[0]
-                out = gathered_bank_eval(
-                    data.reshape(n, -1),
-                    self.a.reshape(n - 1, -1),
-                    self.b.reshape(n - 1, -1),
-                    idx.reshape(-1),
-                    tq.reshape(-1),
-                )
-                return out.reshape(xq.shape + data.shape[1:])
-
-            return jax.lax.platform_dependent(
-                idx, tq, tpu=gathered_form, default=gather_form
-            )
-        return gather_form(idx, tq)
 
     # -- calculus (beyond reference; SciPy CubicSpline parity) ---------------
     def _interval_quantities(self, interp, p):
-        """(idx, dx, t, y_l, y_r, a, b) at flat query vector ``p`` —
-        the shared gather for the derivative/antiderivative forms."""
-        from ...ops.gather import gather_rows
-        from ...ops.searchsorted import lower_index_fast
+        """(idx, dx, t, y_l, y_r, a, b) at flat query vector ``p``: one
+        interval search, one gather of both knots, and ONE stacked row
+        gather of ``[y_l, y_r, a, b]`` -- the shared front end of the
+        value, derivative and antiderivative forms."""
+        from ...ops.searchsorted import get_lower_index
 
         x = interp.x
         data = interp.data
-        idx = lower_index_fast(x, p)
+        idx = get_lower_index(x, p)
         xg = jnp.stack([x[:-1], x[1:]], axis=-1)[idx]
         dx = xg[..., 1] - xg[..., 0]
         t = (p - xg[..., 0]) / dx
         tbl = jnp.stack([data[:-1], data[1:], self.a, self.b], axis=-1)
-        g = gather_rows(tbl, idx, assume_finite=self.finite)
+        g = tbl[idx]  # (Q, *trailing, 4)
         expand = p.shape + (1,) * (data.ndim - 1)
         return (
             idx,
@@ -925,13 +746,8 @@ class CubicSplineStrategy(Interp1DStrategy):
             raise ValueError(
                 f"derivative order must be 1, 2, or 3; got {order}"
             )
-        x = interp.x
         if self.mode == "periodic":
-            x0 = x[0]
-            xn = x[x.shape[0] - 1]
-            wrapped = jnp.mod(xq - x0, xn - x0) + x0
-            in_r = (x0 <= xq) & (xq <= xn)
-            xq = jnp.where(in_r, xq, wrapped)
+            xq = _wrap_periodic(interp.x, xq)
         _, dx, t, y_l, y_r, a, b = self._interval_quantities(interp, xq)
         one = jnp.ones((), y_l.dtype)
         if order == 1:
@@ -1032,16 +848,13 @@ class CubicSplineStrategy(Interp1DStrategy):
 
     # -- pytree --------------------------------------------------------------
     def tree_flatten(self):
-        return (self.a, self.b), (self.mode, self.finite)
+        return (self.a, self.b), (self.mode,)
 
     @classmethod
     def tree_unflatten(cls, aux, children):
-        # aux was (mode,) before the finite hint existed; accept both so
-        # checkpoints round-trip
-        return cls(
-            children[0], children[1], aux[0],
-            aux[1] if len(aux) > 1 else True,
-        )
+        # older pickled treedefs carry a second (routing-hint) aux entry;
+        # only the mode matters
+        return cls(children[0], children[1], aux[0])
 
     def __repr__(self):
         return f"CubicSplineStrategy(a={self.a.shape}, mode={self.mode})"

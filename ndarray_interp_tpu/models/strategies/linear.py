@@ -2,7 +2,7 @@
 
 Reference: ``/root/reference/src/interp1d/strategies/linear.rs``.  The
 strategy is stateless configuration (``extrapolate`` flag); ``build`` is a
-no-op (``linear.rs:54-63``).  Evaluation is one fused bucketize → 2-point
+no-op (``linear.rs:54-63``).  Evaluation is one bucketize → 2-point
 gather → lerp over the whole query batch (the reference does the same math
 per query point, ``linear.rs:73-98``).
 """
@@ -29,86 +29,25 @@ class Linear(Interp1DStrategy, Interp1DStrategyBuilder):
 
     MINIMUM_DATA_LENGTH = 2  # linear.rs:52
 
-    def __init__(self, extrapolate: bool = False, finite: bool = True):
+    def __init__(self, extrapolate: bool = False):
         self.extrapolates = bool(extrapolate)
-        # static hint: data values all finite (safe for one-hot selection)
-        self.finite = bool(finite)
 
     def extrapolate(self, yes: bool = True) -> "Linear":
         """Return a copy with extrapolation enabled/disabled (chainable)."""
-        return Linear(extrapolate=yes, finite=self.finite)
-
-    def with_data_finite(self, finite: bool) -> "Linear":
-        if bool(finite) == self.finite:
-            return self
-        return Linear(extrapolate=self.extrapolates, finite=finite)
+        return Linear(extrapolate=yes)
 
     # -- strategy protocol -------------------------------------------------
     def build(self, x, data) -> "Linear":
         return self
 
     def eval(self, interp, xq):
-        import jax
+        from ...ops.searchsorted import get_lower_index
 
-        from ... import config
-        from ...ops.pallas_eval import (
-            can_use_fused,
-            fused_eval_1d,
-            make_interval_table,
-        )
-
-        if (
-            config.use_fused_kernel
-            and self.finite
-            and xq.dtype == jnp.float32
-            and can_use_fused(interp.x, interp.data)
-        ):
-            # a = b = 0 collapses the shared Hermite kernel to the lerp;
-            # platform selected at lowering time
-            return jax.lax.platform_dependent(
-                xq,
-                tpu=lambda q: fused_eval_1d(
-                    interp.x, make_interval_table(interp.x, interp.data), q
-                ),
-                default=lambda q: self._eval_xla(interp, q),
-            )
-
-        from ...ops.bigknots import big_eval_1d, can_use_big
-
-        if (
-            config.use_fused_kernel
-            and self.finite
-            and xq.dtype == jnp.float32
-            and xq.ndim == 1
-            and can_use_big(interp.x, interp.data)
-        ):
-            # n > 64k: hierarchical search + one gather (ops/bigknots.py);
-            # a = b = 0 reduces the Hermite form to the lerp
-            zeros = jnp.zeros(
-                (interp.x.shape[0] - 1,), interp.data.dtype
-            )
-            return jax.lax.platform_dependent(
-                xq,
-                tpu=lambda q: big_eval_1d(
-                    interp.x, interp.data, zeros, zeros, q
-                ),
-                default=lambda q: self._eval_xla(interp, q),
-            )
-        return self._eval_xla(interp, xq)
-
-    def _eval_xla(self, interp, xq):
-        from ...ops.gather import gather_rows
-        from ...ops.searchsorted import lower_index_fast
-
-        idx = lower_index_fast(interp.x, xq)
+        idx = get_lower_index(interp.x, xq)
         # single stacked gather for both interval endpoints (see cubic.py)
         xg = jnp.stack([interp.x[:-1], interp.x[1:]], axis=-1)[idx]
         x1, x2 = xg[..., 0], xg[..., 1]
-        yg = gather_rows(
-            jnp.stack([interp.data[:-1], interp.data[1:]], axis=-1),
-            idx,
-            assume_finite=self.finite,
-        )
+        yg = jnp.stack([interp.data[:-1], interp.data[1:]], axis=-1)[idx]
         y1, y2 = yg[..., 0], yg[..., 1]
         expand = xq.shape + (1,) * (interp.data.ndim - 1)
         return calc_frac(
@@ -117,20 +56,15 @@ class Linear(Interp1DStrategy, Interp1DStrategyBuilder):
 
     # -- calculus (beyond reference; SciPy-style surface) --------------------
     def _interval_quantities(self, interp, p):
-        from ...ops.gather import gather_rows
-        from ...ops.searchsorted import lower_index_fast
+        from ...ops.searchsorted import get_lower_index
 
         x = interp.x
         data = interp.data
-        idx = lower_index_fast(x, p)
+        idx = get_lower_index(x, p)
         xg = jnp.stack([x[:-1], x[1:]], axis=-1)[idx]
         dx = xg[..., 1] - xg[..., 0]
         t = (p - xg[..., 0]) / dx
-        yg = gather_rows(
-            jnp.stack([data[:-1], data[1:]], axis=-1),
-            idx,
-            assume_finite=self.finite,
-        )
+        yg = jnp.stack([data[:-1], data[1:]], axis=-1)[idx]
         expand = p.shape + (1,) * (data.ndim - 1)
         return (
             idx,
@@ -207,14 +141,13 @@ class Linear(Interp1DStrategy, Interp1DStrategyBuilder):
 
     # -- pytree -------------------------------------------------------------
     def tree_flatten(self):
-        return (), (self.extrapolates, self.finite)
+        return (), (self.extrapolates,)
 
     @classmethod
     def tree_unflatten(cls, aux, children):
         del children
-        # aux was (extrapolates,) before the finite hint existed; accept both
-        # so checkpoints round-trip
-        return cls(extrapolate=aux[0], finite=aux[1] if len(aux) > 1 else True)
+        # older pickled treedefs carry a second (routing-hint) aux entry
+        return cls(extrapolate=aux[0])
 
     def __repr__(self):
         return f"Linear(extrapolate={self.extrapolates})"

@@ -2,18 +2,17 @@
 
 ``HAVE_NATIVE`` is False when the shared library is absent and cannot be
 built (no compiler); all callers must degrade to the JAX path.  The
-library auto-builds on first import when a compiler is available.
+library auto-builds on first import when a compiler is available, from
+the committed sources, under a name keyed by their hash and the build
+flags (``native/build.py``).
 """
 
 from __future__ import annotations
 
 import ctypes
-from pathlib import Path
+import subprocess
 
 import numpy as np
-
-_HERE = Path(__file__).resolve().parent
-_SO = _HERE / "libndi_native.so"
 
 _lib = None
 HAVE_NATIVE = False
@@ -23,15 +22,16 @@ def _load():
     global _lib, HAVE_NATIVE
     if _lib is not None:
         return _lib
-    if not _SO.exists():
-        try:
-            from .build import build
+    from .build import build, library_path
 
+    so = library_path()
+    if not so.exists():
+        try:
             build(verbose=False)
-        except Exception:
+        except (OSError, subprocess.CalledProcessError):
             return None
     try:
-        _lib = ctypes.CDLL(str(_SO))
+        _lib = ctypes.CDLL(str(so))
     except OSError:
         return None
 

@@ -1,6 +1,6 @@
 // Native host runtime for ndarray_interp_tpu.
 //
-// The TPU (XLA/Pallas) path owns batched workloads; this C++ core owns the
+// The device (XLA) path owns batched workloads; this C++ core owns the
 // host-side eager path — scalar and small-batch queries where device
 // dispatch latency would dominate.  It mirrors the roles of the
 // reference's CPU hot loops (cited per function) without porting their

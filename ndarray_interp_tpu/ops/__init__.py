@@ -1,18 +1,13 @@
-from .gather import gather_rows
 from .lerp import calc_frac
-from .pallas_eval import can_use_fused, fused_eval_1d, make_interval_table
-from .pallas_thomas import thomas_solve_fast
+from .pcr import pcr_solve
 from .searchsorted import get_lower_index, is_in_range
-from .thomas import thomas_solve
+from .thomas import thomas_solve, thomas_solve_fast
 
 __all__ = [
     "calc_frac",
-    "can_use_fused",
-    "fused_eval_1d",
-    "gather_rows",
     "get_lower_index",
     "is_in_range",
-    "make_interval_table",
+    "pcr_solve",
     "thomas_solve",
     "thomas_solve_fast",
 ]

@@ -4,7 +4,7 @@ No reference analogue (the Rust crate has no root finding); the surface
 this feeds — ``Interp1D.solve(y)`` / ``Interp1D.roots()`` — mirrors SciPy's
 ``PPoly.solve``/``PPoly.roots`` so CubicSpline users can switch.
 
-TPU-native design: a spline with ``n`` knots has ``n-1`` interval cubics,
+Design: a spline with ``n`` knots has ``n-1`` interval cubics,
 each with at most 3 real roots, so the root set has a *static* bound
 ``3(n-1)`` — the whole solve is one fixed-shape batched computation
 (classify → closed form → Newton polish → accept-window → sort → dedupe)

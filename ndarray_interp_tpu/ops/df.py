@@ -1,31 +1,23 @@
 """Double-float (two-float) arithmetic: error-free transforms on f32.
 
-TPU f64 is emulated and slow; the path to "matching f64 accuracy"
-(BASELINE.json:5) on chip is double-float arithmetic — every value is an
-unevaluated sum ``hi + lo`` of two f32 with ``|lo| <= ulp(hi)/2``, giving
-~49 effective mantissa bits (~1e-14 relative).  The building blocks are
-the classical error-free transforms (Dekker 1971, Knuth TAOCP 4.2.2):
-``two_sum``/``two_prod`` compute a rounded result *and* its exact f32
-rounding error.
+The f64-grade serving evaluators (``serving.DoubleFloatEvaluator*``)
+represent every value as an unevaluated sum ``hi + lo`` of two f32 with
+``|lo| <= ulp(hi)/2``, giving ~49 effective mantissa bits (~1e-14
+relative) on f32 arithmetic.  The building blocks are the classical
+error-free transforms (Dekker 1971, Knuth TAOCP 4.2.2): ``two_sum`` /
+``two_prod`` compute a rounded result *and* its exact f32 rounding error.
 
-These are branch-free elementwise ops, usable identically inside Pallas
-kernels (VPU) and in plain XLA.  Correctness requires strict per-op f32
-IEEE semantics: ``two_prod`` uses Veltkamp splitting (no FMA assumption),
-and the compiler must not reassociate or fuse the sequences.  Measured
-compiler behavior (v5e, jax 0.9):
-
-* **Mosaic (real TPU pallas compile): exact** — verified bit-for-bit on
-  chip (``tests/test_tpu_parity.py``).
-* **Plain XLA jit (CPU): exact** — ``tests/test_df.py`` pins it.
-* **Pallas interpret mode: BROKEN** — the interpret-mode emulation
-  rewrites the sequences (e.g. ``two_sum`` degrades to the naive sum,
-  losing the error term), so DF *accuracy* cannot be validated in
-  interpret mode; only plumbing/semantics can.  Hence the split test
-  strategy above.
+Correctness requires strict per-op f32 IEEE semantics: ``two_prod`` uses
+Veltkamp splitting (no FMA assumption), and the compiler must neither
+reassociate nor contract the sequences into FMAs.  Every error-term step
+therefore passes through an ``optimization_barrier`` (:func:`_guard`),
+and broadcasts go through :func:`_materialize_broadcast`.  Pinned on
+XLA:CPU by ``tests/test_df.py`` and on an H100 by ``chip_smoke.py``
+phase P5 (≤1e-12 scale-relative against a float64 SciPy oracle).
 
 Reference mapping: the reference evaluates in native f64
-(``cubic_spline.rs:818-828``); this module is the TPU-native equivalent
-representation of that precision.
+(``cubic_spline.rs:818-828``); this module is an f32-pair representation
+of that precision.
 """
 
 from __future__ import annotations
@@ -33,32 +25,10 @@ from __future__ import annotations
 import jax.numpy as jnp
 
 
-import contextlib
-
-_GUARDED = True
-
-
-@contextlib.contextmanager
-def no_guard():
-    """Disable the XLA opacity barriers while tracing a Pallas kernel
-    body: Mosaic performs no algebraic rewriting (EFT preservation is
-    pinned on-chip by tests/test_tpu_parity.py) and does not lower
-    ``optimization_barrier``."""
-    global _GUARDED
-    prev = _GUARDED
-    _GUARDED = False
-    try:
-        yield
-    finally:
-        _GUARDED = prev
-
-
 def _guard(x):
     """Opacity barrier: stops XLA's algebraic simplifier from cancelling
     the error-term sequences (measured: without it, jit on CPU rewrites
     ``a - (s - (s - a))``-style chains and the error terms vanish)."""
-    if not _GUARDED:
-        return x
     import jax
 
     return jax.lax.optimization_barrier(x)
@@ -111,10 +81,8 @@ def two_prod(a, b):
 
     Broadcasting operands (e.g. a (Q,1) pair against a (Q,bank) pair)
     are materialized through :func:`_materialize_broadcast` first — see
-    its docstring for the XLA:CPU emitter trap this defeats.  Inside
-    Mosaic kernel bodies (``no_guard``) nothing is needed: Mosaic
-    neither contracts nor rewrites the sequences (pinned on chip)."""
-    if _GUARDED and jnp.shape(a) != jnp.shape(b):
+    its docstring for the XLA:CPU emitter trap this defeats."""
+    if jnp.shape(a) != jnp.shape(b):
         shape = jnp.broadcast_shapes(jnp.shape(a), jnp.shape(b))
         a = _materialize_broadcast(a, shape)
         b = _materialize_broadcast(b, shape)
@@ -165,8 +133,8 @@ def df_div(x, y):
 
 
 def df_from_f64(x):
-    """Split a float64 array into an (hi, lo) float32 pair (host/CPU side;
-    the TPU never sees an f64 value)."""
+    """Split a float64 array into an (hi, lo) float32 pair (host side;
+    the device never sees an f64 value)."""
     import numpy as np
 
     x = np.asarray(x, np.float64)

@@ -1,11 +1,11 @@
 """Grid-axis capacity sharding: Interp2D/InterpND cell tables split
-over a device mesh (VERDICT r4 task 4; SURVEY §5 scale-axis row).
+over a device mesh (SURVEY §5 scale-axis row).
 
 The component that hits memory caps on multi-axis grids is the packed
 CELL table — ``4^k``× the grid data's memory for the tensor-product
 cubic (an ND 256³ tricubic cell table is 4.2 GB; its node fallback is
 still 738 MB) — while the axis knot *vectors* are tiny (a 256-entry f32
-axis is 1 KB).  The TPU-native split therefore inverts
+axis is 1 KB).  The split therefore inverts
 ``ops/knotshard.py``'s layout: **replicate the axis vectors, shard the
 table** along the leading grid axis's cells.
 
@@ -56,21 +56,7 @@ from ..models.interpnd import (
     pack_corner_rows_nd,
     pack_cubic_rows_nd,
 )
-from .searchsorted import get_lower_index
-
-
-def _xla_index_frac(knots, q):
-    """Plain-XLA ``(get_lower_index(q), t)`` — the same values and
-    ``calc_frac`` operand order as ``strategies.bicubic._index_frac``'s
-    XLA branch.  The Pallas ``fused_index_frac`` variant must NOT be
-    used here: it is a ``custom_partitioning`` op, and calling it
-    inside the ``shard_map`` body fails shard_map's vma check at trace
-    time for every f32 axis (caught by round-5 review; the grid-shard
-    tests all ran f64, which is kernel-ineligible and hid it)."""
-    idx = get_lower_index(knots, q)
-    x_l = knots[idx]
-    x_r = knots[idx + 1]
-    return idx, (q - x_l) / (x_r - x_l)
+from ..models.strategies.bicubic import _index_frac
 
 
 def grid_shard_geometry(c0, n_shards):
@@ -236,7 +222,7 @@ def sharded_grid_eval(
                 # same in-range test as _eval_flat_masked
                 good = (q >= ax[0]) & (q <= ax[-1])
                 ok = good if ok is None else (ok & good)
-            i, t = _xla_index_frac(ax, q)
+            i, t = _index_frac(ax, q)
             idx.append(i)
             ts.append(t)
         w = (

@@ -1,10 +1,10 @@
 """Knot-axis sharding: evaluation with the knot/coefficient axis itself
-split over a device mesh (VERDICT r2 task 4; SURVEY §5 scale-axis row).
+split over a device mesh (SURVEY §5 scale-axis row).
 
 Everywhere else in this framework the knot vector replicates — the right
-default at kB scale — and bank/query axes shard.  Past the single-device
-big-route cap (``bigknots.MAX_BIG_KNOTS`` = 8.4M knots) the knot axis
-must split too.  The TPU-native design:
+default at kB scale — and bank/query axes shard.  When a knot axis and
+its coefficients outgrow one device the knot axis splits too.  The
+design:
 
 * **Contiguous shards + a one-knot halo.**  Device ``d`` of ``D`` owns
   intervals ``[d*S, (d+1)*S)`` (``S = ceil((n-1)/D)``) and stores the
@@ -20,11 +20,8 @@ must split too.  The TPU-native design:
   ownership sets partition the query space, so the final combine is ONE
   ``psum`` over the knot mesh axis of zero-masked local results.
 * **Local evaluation is the existing single-device machinery** on the
-  shard: small shards use the vectorized searchsorted form
-  (``pallas_eval._eval_xla`` semantics), large shards the hierarchical
-  big-route search (``bigknots.big_lower_index_frac``, pure-XLA mode) —
-  so per-shard capacity is itself ``MAX_BIG_KNOTS`` and the global cap
-  becomes ``D * 8.4M`` knots.
+  shard: the vectorized searchsorted (``ops/searchsorted.py``) over the
+  shard's own ``S+1`` knots, then the Hermite form.
 
 Padding intervals (to make ``D*S`` divisible) carry largest-finite
 sentinel knots and zero data; they own no queries (their value range is
@@ -36,21 +33,17 @@ positions (no gather), so pad garbage never reaches the psum.
 Reference semantics preserved: clamp to ``[0, n-2]`` incl. ±inf
 (``vector_extensions.rs:61-66``), NaN→NaN, Hermite symmetric form with
 the exact op order of ``cubic_spline.rs:818-828`` (linear: a = b = 0
-collapses to the lerp with the ``lin_inf`` guard of ``_eval_xla``).
+collapses to the lerp, with a ``lin_inf`` guard so ±inf queries give
+±inf, not NaN from inf·0).
 """
 
 from __future__ import annotations
-
-import math
 
 import jax
 import jax.numpy as jnp
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-from .bigknots import MAX_BIG_KNOTS, big_lower_index_frac
-
-# local (per-shard) knot counts above this use the hierarchical search
-_LOCAL_BIG = 65536
+from .searchsorted import get_lower_index
 
 
 def shard_geometry(n, n_shards):
@@ -73,10 +66,8 @@ def pack_knot_shards(knots, data, a, b, n_shards):
     n = knots.shape[0]
     s, _ = shard_geometry(n, n_shards)
     total = n_shards * s + 1
-    # largest-FINITE sentinel, not +inf: the big-route local search fetches
-    # leaders via one-hot MXU matmuls, where a 0 * inf lane would poison
-    # every query with NaN (same convention as bigknots._pad_knots; the
-    # truncating _split3 keeps finfo.max finite in bf16)
+    # largest-FINITE sentinel: pad intervals then have finite widths, so
+    # no inf - inf reaches the (masked-out) local arithmetic
     big = jnp.asarray(jnp.finfo(knots.dtype).max, knots.dtype)
     kp = jnp.concatenate([knots, jnp.full((total - n,), big, knots.dtype)])
     dp = jnp.concatenate(
@@ -99,41 +90,9 @@ def pack_knot_shards(knots, data, a, b, n_shards):
     )
 
 
-def _local_index_frac(kloc, q, idx_max, pallas=False, interpret=False):
+def _local_index_frac(kloc, q, idx_max):
     """Local ``(idx, t)`` on the shard's S+1 knots, idx clamped to
-    ``[0, idx_max]`` (the shard's last *real* interval).
-
-    ``pallas=True`` routes f32 shards through the Pallas searches —
-    the fused two-level bucketize for windowed-plan sizes
-    (``pallas_eval.fused_lower_index``) and the hierarchical big-route
-    search with its Mosaic block pass past ``_LOCAL_BIG`` — running
-    INSIDE the ``shard_map`` body (each device searches only its own
-    S+1 knots).  The default stays XLA-only: on the CPU mesh the
-    kernels need interpret mode, and on TPU the caller opts in."""
-    n_loc = kloc.shape[0]
-    if n_loc > _LOCAL_BIG and kloc.dtype == jnp.float32:
-        # hierarchical big-route search (its exact one-hot table fetch
-        # bitcast-splits f32 only — other dtypes take the searchsorted
-        # path below)
-        idx, _ = big_lower_index_frac(
-            kloc, q, pallas=pallas, interpret=interpret
-        )
-        idx = jnp.minimum(idx, idx_max)
-        x_l = kloc[idx]
-        x_r = kloc[idx + 1]
-        return idx, (q - x_l) / (x_r - x_l)
-    if pallas and kloc.dtype == jnp.float32:
-        from .pallas_eval import _plan, fused_lower_index
-
-        if _plan(n_loc) is not None:
-            idx = jnp.minimum(
-                fused_lower_index(kloc, q, interpret=interpret), idx_max
-            )
-            x_l = kloc[idx]
-            x_r = kloc[idx + 1]
-            return idx, (q - x_l) / (x_r - x_l)
-    from .searchsorted import get_lower_index
-
+    ``[0, idx_max]`` (the shard's last *real* interval)."""
     # shared clamp-to-[0, n-2] search; idx_max <= n_loc - 2 always
     idx = jnp.minimum(get_lower_index(kloc, q), idx_max)
     x_l = kloc[idx]
@@ -149,7 +108,7 @@ def _hermite(y_l, y_r, a, b, t):
 
 
 def _local_eval(kloc, dloc, aloc, bloc, q, *, n, s, d_last, axis,
-                oob="clamp", pallas=False, interpret=False):
+                oob="clamp"):
     """One shard's contribution: zero-masked local Hermite values.
 
     Trailing (bank) dims of ``dloc``/``aloc``/``bloc`` are supported:
@@ -166,9 +125,7 @@ def _local_eval(kloc, dloc, aloc, bloc, q, *, n, s, d_last, axis,
     start = d * s
     # last real interval this shard holds, as a LOCAL index
     idx_max = jnp.clip(n - 2 - start, 0, s - 1)
-    idx, t = _local_index_frac(
-        kloc, q, idx_max, pallas=pallas, interpret=interpret
-    )
+    idx, t = _local_index_frac(kloc, q, idx_max)
     tr = dloc.ndim - 1  # trailing (bank) dims
     te = t.reshape(t.shape + (1,) * tr)
     rows_y_l = dloc[idx]
@@ -211,8 +168,7 @@ def _local_eval(kloc, dloc, aloc, bloc, q, *, n, s, d_last, axis,
 
 
 def sharded_knot_eval(kshards, dshards, ashards, bshards, q, mesh, n,
-                      axis="knot", query_axis=None, oob="clamp",
-                      pallas=False, interpret=False):
+                      axis="knot", query_axis=None, oob="clamp"):
     """Evaluate flat queries against knot-sharded Hermite state.
 
     ``kshards``/``dshards``: (D, S+1); ``ashards``/``bshards``: (D, S)
@@ -227,10 +183,6 @@ def sharded_knot_eval(kshards, dshards, ashards, bshards, q, mesh, n,
 
     ``oob="nan"``: mask out-of-range queries to NaN instead of clamping
     (the driver's pure-path ``extrapolate=False`` contract).
-
-    ``pallas=True``: run the Pallas searches (fused two-level bucketize
-    / big-route block pass) inside the shard body on f32 axes;
-    ``interpret=True`` for the CPU mesh.
     """
     n_shards = kshards.shape[0]
     s, d_last = shard_geometry(n, n_shards)
@@ -247,8 +199,7 @@ def sharded_knot_eval(kshards, dshards, ashards, bshards, q, mesh, n,
     def body(kloc, dloc, aloc, bloc, ql):
         out = _local_eval(
             kloc[0], dloc[0], aloc[0], bloc[0], ql,
-            n=n, s=s, d_last=d_last, axis=axis,
-            oob=oob, pallas=pallas, interpret=interpret,
+            n=n, s=s, d_last=d_last, axis=axis, oob=oob,
         )
         return jax.lax.psum(out, axis)
 
@@ -265,10 +216,6 @@ def sharded_knot_eval(kshards, dshards, ashards, bshards, q, mesh, n,
         in_specs=(kspec, spec_for(dshards), spec_for(ashards),
                   spec_for(bshards), qspec),
         out_specs=P(query_axis, *([None] * out_tr)),
-        # pallas_call declares no varying-mesh-axes info, so the vma
-        # checker rejects any Pallas search inside the body; the psum
-        # makes the output's axis-variance explicit anyway
-        check_vma=not pallas,
     )(kshards, dshards, ashards, bshards, q)
 
 
@@ -285,7 +232,7 @@ def place_knot_shards(shards, mesh, axis="knot"):
 
 
 def shard_interp1d_knots(interp, mesh, axis="knot", query_axis=None,
-                         oob="clamp", pallas=False, interpret=False):
+                         oob="clamp"):
     """Knot-shard an :class:`~ndarray_interp_tpu.models.interp1d.Interp1D`
     over a mesh axis; returns an evaluator ``ev(q) -> (len(q), *bank)``.
 
@@ -293,8 +240,7 @@ def shard_interp1d_knots(interp, mesh, axis="knot", query_axis=None,
     (which carry ``a``/``b``).  The strategy's extrapolation flag is not
     consulted — by default OOB queries clamp to the edge intervals;
     ``oob="nan"`` applies the pure-path ``extrapolate=False`` mask.
-    ``query_axis``/``pallas``/``interpret`` forward to
-    :func:`sharded_knot_eval`."""
+    ``query_axis`` forwards to :func:`sharded_knot_eval`."""
     x = interp.x
     data = interp.data
     strat = interp.strategy
@@ -312,13 +258,7 @@ def shard_interp1d_knots(interp, mesh, axis="knot", query_axis=None,
     def ev(q):
         return sharded_knot_eval(
             *shards, q, mesh=mesh, n=n, axis=axis, query_axis=query_axis,
-            oob=oob, pallas=pallas, interpret=interpret,
+            oob=oob,
         )
 
     return ev
-
-
-def max_sharded_knots(n_shards):
-    """The knot-axis capacity with ``n_shards`` devices: each shard is a
-    single-device big-route problem, so the global cap is ~D * 8.4M."""
-    return n_shards * (MAX_BIG_KNOTS - 1)

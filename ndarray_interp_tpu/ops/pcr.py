@@ -2,11 +2,10 @@
 
 The Thomas recurrence (``thomas.py``, reference
 ``cubic_spline.rs:678-721``) is inherently sequential along the knot
-axis: ~2n dependent steps.  On TPU that chain is latency-bound — a
-(2048, 4096) spline-bank solve measured ~5.4 ms even with the knot loop
-in VMEM, because each step is a handful of elementwise ops that cannot
-overlap.  PCR restructures the elimination into ``ceil(log2 n)`` levels
-of *independent* full-width row combinations:
+axis: ~2n dependent steps, each a handful of elementwise ops that cannot
+overlap (an H100 spends 5.5 ms on a (2048, 4096) spline-bank solve that
+way).  PCR restructures the elimination into ``ceil(log2 n)`` levels of
+*independent* full-width row combinations:
 
     level (stride s): row i absorbs rows i-s and i+s with
         alpha_i = -a_i / b_{i-s},  gamma_i = -c_i / b_{i+s}
@@ -19,14 +18,13 @@ with out-of-range rows treated as identity rows (a = c = d = 0, b = 1).
 After all levels every coupling is out of range and ``x = d / b``.
 
 Work is O(n log n) instead of O(n), but every level is a fully parallel
-elementwise pass over the (n, bank) block — exactly the shape the VPU
-wants — and for *shared* diagonals (the common case: one knot axis, many
+elementwise pass over the (n, bank) block, and for *shared* diagonals (the common case: one knot axis, many
 splines) the diagonal updates are (n,)-vector ops, so only the rhs pays
 the log-factor.  The spline systems are strictly diagonally dominant
 (``a_mid = 2(dx_i + dx_{i+1}) > a_up + a_low``), which PCR preserves, so
 the elimination is unconditionally stable; results differ from the
 sequential order by normal f32/f64 rounding only (NOT bit-identical —
-the scan solver remains the reference-order path and the CPU default).
+the scan solver remains the reference-order path and the CPU route).
 """
 
 from __future__ import annotations

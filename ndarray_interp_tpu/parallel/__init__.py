@@ -6,7 +6,6 @@ from ..ops.gridshard import (
     sharded_grid_eval,
 )
 from ..ops.knotshard import (
-    max_sharded_knots,
     pack_knot_shards,
     place_knot_shards,
     shard_interp1d_knots,
@@ -23,7 +22,6 @@ from .sharding import (
 
 __all__ = [
     "make_mesh",
-    "max_sharded_knots",
     "pack_interpnd_grid_shards",
     "pack_knot_shards",
     "place_grid_shards",

@@ -2,7 +2,7 @@
 
 The reference is single-process CPU; its only parallelism is driving the
 library from rayon threads in benches (``benches/bench_interp1d.rs:49-79``).
-The TPU-native scale-out story (SURVEY.md §5/§7) replaces that with
+The scale-out story here (SURVEY.md §5/§7) replaces that with
 ``jax.sharding``:
 
 * **Bank parallelism** (the analogue of tensor parallelism): the trailing
@@ -18,7 +18,7 @@ The TPU-native scale-out story (SURVEY.md §5/§7) replaces that with
 
 Collectives only appear when a computation reduces across one of these
 axes (e.g. a loss over all queries/banks under ``grad``) — XLA inserts the
-``psum`` over ICI automatically from the sharding annotations.
+``psum`` over the device interconnect automatically from the sharding annotations.
 """
 
 from __future__ import annotations

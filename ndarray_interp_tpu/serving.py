@@ -18,6 +18,7 @@ out-of-range work regardless of the extrapolation mode.
 from __future__ import annotations
 
 import bisect
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -59,12 +60,19 @@ class _BucketedEvaluator:
         single bucket evaluation runs."""
         raise NotImplementedError
 
+    def lower(self):
+        """The serving program of the smallest bucket, lowered for the
+        default device: ``ev.lower().compile()`` gives its compile time
+        and ``memory_analysis()``."""
+        fn, args = self._hygiene_args()
+        return fn.lower(*args)
+
     def verify_hygiene(self, cap_bytes=None):
         """Compile-payload guard: trace one serving program and assert
         it embeds no big constants (``utils/hygiene.py``).  A closure-
-        captured table would be constant-folded into the program and
-        shipped with every (remote) compile — tables must ride as jit
-        arguments.  Runs once per evaluator (cached); called
+        captured table would be constant-folded into the program,
+        copied into every compiled executable and hashed by the compile
+        cache — tables must ride as jit arguments.  Runs once per evaluator (cached); called
         automatically from ``warmup()`` and the first ``__call__`` of
         the double-float evaluators.  Raises ``RuntimeError`` with the
         offending constant shapes on violation."""
@@ -274,16 +282,12 @@ class DoubleFloatEvaluator(_BucketedEvaluator):
     """f64-grade serving on f32 hardware: double-float evaluation of a
     1-D cubic/Hermite (or linear) interpolator.
 
-    Build the interpolator eagerly on the CPU backend in f64 (the normal
-    validated path); this evaluator splits its knots/data/coefficients
-    into (hi, lo) f32 pairs once, and evaluates queries with the
-    double-float fused kernel (``ops/pallas_eval_df.py``) on TPU — or
-    the plain-XLA double-float formulation elsewhere — returning f64.
-    Accuracy vs the f64 oracle on chip (tests/test_tpu_parity.py):
-    ≤1e-12 scale-relative for the scalar kernel; the banked gather route
-    measures 1.7e-12 max over 4M samples incl. near-cancellation points
-    (gate 4e-12 — see BASELINE.md).  Cost: ~1.23× the f32 kernel
-    (scalar) / 2.08× the f32 gather route (banked).
+    Build the interpolator eagerly in f64 (the normal validated path);
+    this evaluator splits its knots/data/coefficients into (hi, lo) f32
+    pairs once, and evaluates queries with the double-float routes of
+    ``ops/df_eval.py``, returning f64.  Accuracy gate vs the f64 oracle:
+    ≤1e-12 scale-relative (``chip_smoke.py`` phase P5 on the card,
+    ``tests/test_df.py`` on the CPU).
 
     Out-of-range semantics follow the strategy: ``extrapolate(False)``
     raises :class:`~ndarray_interp_tpu.errors.OutOfBoundsError` on the
@@ -340,60 +344,40 @@ class DoubleFloatEvaluator(_BucketedEvaluator):
         for v in (x64, d64, a64, b64):
             self._pairs.extend(df_from_f64(v))
 
-        from .ops.partition import sharded_df_eval
-        from .ops.pallas_eval import _plan
-        from .ops.pallas_eval_df import eval_xla_df
+        from .ops.df_eval import (
+            eval_xla_df,
+            gathered_bank_eval_df_packed,
+            gathered_bank_eval_f48_packed,
+            pack_bank_rows_df,
+            pack_bank_rows_f48,
+        )
 
         if grade != "df" and not self._bank_shape:
             raise ValueError(
                 "grade='f48' supports the banked (trailing-dims) route "
-                "only; the scalar kernel is always full double-float"
+                "only; the scalar route is always full double-float"
             )
         if self._bank_shape:
-            # banked gather route: DF (idx, t) kernel + ONE packed
-            # (hi, lo) row gather + Mosaic/XLA DF tail.  The table is
-            # packed ONCE here and passed as a jit ARGUMENT — packing
-            # per call would re-concatenate a table that can reach
-            # hundreds of MB, and closure-capturing it ships it with
-            # every (remote) compile (utils/hygiene.py).
-            # grade="f48": bf16-lo packed rows — 75% of the DF table's
-            # memory/gather traffic at ~2^-33 accuracy (vs DF ~2^-48)
-            from .ops.pallas_eval_df import (
-                pack_bank_rows_df,
-                pack_bank_rows_f48,
-            )
-            from .ops.partition import sharded_df_banked_packed
-
-            pack = {"df": pack_bank_rows_df, "f48": pack_bank_rows_f48}[
-                grade
-            ]
+            # banked gather route: DF (idx, t) + ONE packed (hi, lo) row
+            # gather + DF tail.  The table is packed ONCE here and passed
+            # as a jit ARGUMENT: packing per call would re-concatenate a
+            # table that can reach hundreds of MB, and a closure-captured
+            # table is baked into the program (utils/hygiene.py).
+            pack, route = {
+                "df": (pack_bank_rows_df, gathered_bank_eval_df_packed),
+                "f48": (pack_bank_rows_f48, gathered_bank_eval_f48_packed),
+            }[grade]
             self._packed = jax.jit(pack)(*self._pairs[2:8])
-            route = sharded_df_banked_packed(bank, tier=grade)
             self._run = jax.jit(
                 lambda xh, xl, packed, qh, ql: route(
-                    xh, xl, packed, qh, ql
+                    xh, xl, packed, bank, qh, ql
                 )
             )
             self._run_extra = (
                 self._pairs[0], self._pairs[1], self._packed,
             )
-        elif _plan(n) is not None:
-
-            def run(xh, xl, dh, dl, ah, al, bh, bl, qh, ql):
-                pairs = (xh, xl, dh, dl, ah, al, bh, bl)
-                return jax.lax.platform_dependent(
-                    qh, ql,
-                    tpu=lambda qh, ql: sharded_df_eval()(*pairs, qh, ql),
-                    default=lambda qh, ql: eval_xla_df(*pairs, qh, ql),
-                )
-
-            self._run = jax.jit(run)
-            self._run_extra = tuple(self._pairs)
         else:
-            # scalar axis beyond the windowed plan: plain-XLA DF form
-            self._run = jax.jit(
-                lambda *a: eval_xla_df(*a)
-            )
+            self._run = jax.jit(eval_xla_df)
             self._run_extra = tuple(self._pairs)
 
     def warmup(self):
@@ -484,8 +468,7 @@ def eval_into_donated(interp, queries, out):
     this variant instead donates ``out`` — a device array with the result
     shape/dtype — to the compiled program (``jax.jit(...,
     donate_argnums)``), which permits XLA to reuse its storage for the
-    result with no extra allocation (on TPU the reuse is asserted by the
-    gated parity test ``test_eval_into_donated_aliases_buffer``).
+    result with no extra allocation.
     Returns the new array; the passed-in ``out`` must not be used
     afterwards.  (Backends without donation support fall back to a copy
     with a warning — results are still correct.)
@@ -530,18 +513,15 @@ class DoubleFloatEvaluator2D(_BucketedEvaluator):
     """2-D analogue of :class:`DoubleFloatEvaluator`: f64-grade serving
     on f32 hardware for Bilinear AND Bicubic strategies.
 
-    Both run the prepacked DF gather routes through their
-    ``custom_partitioning`` wrappers (``ops/partition.py``): DF (idx, t)
-    passes (Pallas kernels on TPU within the windowed plan, the XLA
-    DF-lexicographic form elsewhere) + ONE packed (hi, lo) row gather +
-    a Mosaic DF tail on TPU / the guarded XLA tail off it.  The packed
-    table is built ONCE at construction and kept on device (~8-10x the
-    grid's f64 memory for bilinear, 2x the f32 cell table for bicubic;
-    bicubic grids past ``config.bicubic_pack_max_elems`` use the
-    memory-frugal NODE table instead — ≈ the grid's f64 memory, 4
-    gathers/query) — on every backend, including CPU-only hosts.
-    Trailing (bank) dims supported; build the Interp2D eagerly in f64 on
-    CPU; periodic bicubic axes wrap in f64 on the host."""
+    Both run the prepacked DF gather routes of ``ops/df_eval.py``: DF
+    (idx, t) passes (DF-lexicographic search) + ONE packed (hi, lo) row
+    gather + the guarded DF tail.  The packed table is built ONCE at
+    construction and kept on device (~8-10x the grid's f64 memory for
+    bilinear, 2x the f32 cell table for bicubic; bicubic grids past
+    ``config.bicubic_pack_max_elems`` use the memory-frugal NODE table
+    instead — ≈ the grid's f64 memory, 4 gathers/query).  Trailing (bank)
+    dims supported; build the Interp2D eagerly in f64; periodic bicubic
+    axes wrap in f64 on the host."""
 
     def __init__(
         self, interp, max_batch: int = 1 << 20, buckets=None, grade="df"
@@ -570,18 +550,16 @@ class DoubleFloatEvaluator2D(_BucketedEvaluator):
         for s in self._trailing:
             r *= s
         # large (hi, lo) tables are packed ONCE here and passed as jit
-        # ARGUMENTS — per-call packing repeats GB-scale copies and
-        # closure capture ships the table with every (remote) compile
+        # ARGUMENTS — per-call packing repeats GB-scale copies and a
+        # closure-captured table is baked into the program
         if isinstance(interp.strategy, BicubicStrategy):
             # f64-grade tensor-product cubic: split the f64 strategy
-            # table (build the Interp2D eagerly in f64 on CPU).  Cell
-            # layout: the PRE-SCALED 16r cell table, ONE gather/query.
-            # Node layout (grids past config.bicubic_pack_max_elems —
-            # exactly the grids whose 2x DF cell table cannot fit):
-            # the block-interleaved (8r+4)-channel DF node table,
-            # 4 gathers/query + the streaming Mosaic tail on TPU
-            # (84.8 vs the cell route's 45.9 ms/1M on NS3d, at 3.9x
-            # less table memory — BASELINE.md round-3 late section).
+            # table (build the Interp2D eagerly in f64).  Cell layout:
+            # the PRE-SCALED 16r cell table, ONE gather/query.  Node
+            # layout (grids past config.bicubic_pack_max_elems —
+            # exactly the grids whose 2x DF cell table cannot fit): the
+            # block-interleaved (8r+4)-channel DF node table, 4
+            # gathers/query at ~4x less table memory.
             pairs = []
             for v in (x64, y64):
                 pairs.extend(df_from_f64(v))
@@ -590,33 +568,41 @@ class DoubleFloatEvaluator2D(_BucketedEvaluator):
                 np.asarray(interp.strategy.rows, np.float64)
             )
             if interp.strategy.layout == "cell":
-                from .ops.pallas_eval_df import (
+                from .ops.df_eval import (
+                    gathered_bicubic_eval_df_packed,
+                    gathered_bicubic_eval_f48_packed,
                     pack_bicubic_rows_df,
                     pack_bicubic_rows_f48,
                 )
-                from .ops.partition import sharded_df_bicubic_packed
 
                 # grade="f48": bf16-lo packed rows — 75% of the DF
                 # table's memory/gather traffic at ~2^-33 relative
                 # (between the f32 route's 2^-24 and DF's 2^-48)
-                pack = {
-                    "df": pack_bicubic_rows_df, "f48": pack_bicubic_rows_f48
+                pack, cell_route = {
+                    "df": (pack_bicubic_rows_df,
+                           gathered_bicubic_eval_df_packed),
+                    "f48": (pack_bicubic_rows_f48,
+                            gathered_bicubic_eval_f48_packed),
                 }[grade]
                 self._packed = jax.jit(
                     lambda h, l: pack(h, l, r)
                 )(*rows_pair)
-                route = sharded_df_bicubic_packed(r, tier=grade)
+                route = functools.partial(cell_route, r=r)
             elif grade != "df":
                 raise ValueError(
                     "grade='f48' supports the bicubic cell layout and "
                     "bilinear only"
                 )
             else:
-                from .ops.pallas_eval_df import pack_bicubic_nodes_df
-                from .ops.partition import sharded_df_bicubic_nodes
+                from .ops.df_eval import (
+                    gathered_bicubic_nodes_eval_df,
+                    pack_bicubic_nodes_df,
+                )
 
                 self._packed = jax.jit(pack_bicubic_nodes_df)(*rows_pair)
-                route = sharded_df_bicubic_nodes(r)
+                route = functools.partial(
+                    gathered_bicubic_nodes_eval_df, r=r
+                )
             self._run_extra = (*self._pairs, self._packed)
             self._run = jax.jit(
                 lambda xh, xl, yh, yl, packed, a, b, c, d: route(
@@ -624,7 +610,9 @@ class DoubleFloatEvaluator2D(_BucketedEvaluator):
                 )
             )
             return
-        from .ops.pallas_eval_df import (
+        from .ops.df_eval import (
+            gathered_bilinear_eval_df_packed,
+            gathered_bilinear_eval_f48_packed,
             pack_bilinear_rows_df,
             pack_bilinear_rows_f48,
         )
@@ -635,18 +623,16 @@ class DoubleFloatEvaluator2D(_BucketedEvaluator):
         self._pairs = pairs
         z_pair = df_from_f64(np.asarray(interp.data, np.float64))
         ny = y64.shape[0]
-        pack = {"df": pack_bilinear_rows_df, "f48": pack_bilinear_rows_f48}[
-            grade
-        ]
+        pack, route = {
+            "df": (pack_bilinear_rows_df, gathered_bilinear_eval_df_packed),
+            "f48": (pack_bilinear_rows_f48,
+                    gathered_bilinear_eval_f48_packed),
+        }[grade]
         self._packed = jax.jit(pack)(*z_pair)
         self._run_extra = (*self._pairs, self._packed)
 
-        from .ops.partition import sharded_df_bilinear_packed
-
-        route = sharded_df_bilinear_packed(ny, r, tier=grade)
-
         def run(xh, xl, yh, yl, packed, qxh, qxl, qyh, qyl):
-            return route(xh, xl, yh, yl, packed, qxh, qxl, qyh, qyl)
+            return route(xh, xl, yh, yl, packed, ny, r, qxh, qxl, qyh, qyl)
 
         self._run = jax.jit(run)
 
@@ -747,14 +733,12 @@ class DoubleFloatEvaluatorND(_BucketedEvaluator):
     on f32 hardware for :class:`~ndarray_interp_tpu.models.interpnd.InterpND`
     (``method="cubic"`` cell layout, or ``method="linear"``).
 
-    Runs the prepacked DF ND gather route (``ops/pallas_eval_df_nd.py``)
-    through its ``custom_partitioning`` wrapper: per-axis DF (idx, t)
-    passes (Pallas DF kernels on TPU within the windowed plan, the XLA
-    DF-lexicographic form elsewhere) + ONE packed (hi, lo) cell-row
-    gather + the k-fold tensor-product Hermite (or multilinear) DF tail
-    — the Mosaic MXU weight-form kernel on TPU, the per-channel XLA
-    form elsewhere.  Eval contract: the reference's per-axis Hermite
-    chain (``cubic_spline.rs:818-828``) tensor-product per axis.
+    Runs the prepacked DF ND gather route
+    (``ops/df_eval.gathered_nd_eval_df_packed``): per-axis DF (idx, t)
+    passes + ONE packed (hi, lo) cell-row gather + the k-fold
+    tensor-product Hermite (or multilinear) DF tail.  Eval contract: the
+    reference's per-axis Hermite chain (``cubic_spline.rs:818-828``)
+    tensor-product per axis.
 
     The packed table is built ONCE at construction and kept on device
     (2x the f32 cell table: ``2 * 4^k * r`` channels per cell for cubic,
@@ -772,8 +756,11 @@ class DoubleFloatEvaluatorND(_BucketedEvaluator):
 
         from .models.interpnd import pack_corner_rows_nd
         from .ops.df import df_from_f64
-        from .ops.pallas_eval_df_nd import pack_rows_nd_df, pack_rows_nd_f48
-        from .ops.partition import sharded_df_nd_packed
+        from .ops.df_eval import (
+            gathered_nd_eval_df_packed,
+            pack_rows_nd_df,
+            pack_rows_nd_f48,
+        )
 
         if grade not in ("df", "f48"):
             raise ValueError(f"grade must be 'df' or 'f48', got {grade!r}")
@@ -828,11 +815,11 @@ class DoubleFloatEvaluatorND(_BucketedEvaluator):
         self._packed = jax.jit(
             lambda h, l: pack(h, l, nbasis**k, r)
         )(*rows_pair)
-        route = sharded_df_nd_packed(
+        route = gathered_nd_eval_df_packed(
             k, grid_shape, r, nbasis=nbasis, tier=grade
         )
         self._run_extra = (*self._pairs, self._packed)
-        self._run = jax.jit(lambda *a: route(*a))
+        self._run = jax.jit(route)
 
     def _hygiene_args(self):
         import numpy as np

@@ -24,7 +24,7 @@ from ..models.interp1d import Interp1D
 from ..models.interp2d import Interp2D
 from ..models.interpnd import InterpND
 from ..models.strategies.bicubic import BicubicStrategy
-from ..models.strategies.bilinear import Bilinear, BilinearPacked
+from ..models.strategies.bilinear import Bilinear
 from ..models.strategies.cubic import CubicSplineStrategy
 from ..models.strategies.linear import Linear
 from ..models.strategies.step import Nearest, Nearest2D
@@ -32,19 +32,14 @@ from ..models.strategies.step import Nearest, Nearest2D
 _STRATEGY_CODECS = {
     "linear": (
         Linear,
-        lambda s: ({"extrapolate": s.extrapolates, "finite": s.finite}, {}),
-        lambda meta, arrs: Linear(
-            extrapolate=meta["extrapolate"], finite=meta.get("finite", True)
-        ),
+        lambda s: ({"extrapolate": s.extrapolates}, {}),
+        lambda meta, arrs: Linear(extrapolate=meta["extrapolate"]),
     ),
     "cubic": (
         CubicSplineStrategy,
-        lambda s: ({"mode": s.mode, "finite": s.finite}, {"a": s.a, "b": s.b}),
+        lambda s: ({"mode": s.mode}, {"a": s.a, "b": s.b}),
         lambda meta, arrs: CubicSplineStrategy(
-            jnp.asarray(arrs["a"]),
-            jnp.asarray(arrs["b"]),
-            meta["mode"],
-            meta.get("finite", True),
+            jnp.asarray(arrs["a"]), jnp.asarray(arrs["b"]), meta["mode"]
         ),
     ),
     "bilinear": (
@@ -83,11 +78,11 @@ _STRATEGY_CODECS = {
         lambda s: ({"extrapolate": s.extrapolates}, {}),
         lambda meta, arrs: Nearest2D(extrapolate=meta["extrapolate"]),
     ),
-    # packed variant: rows are derived state — persist only the config and
-    # re-pack from (x, y, data) on load
+    # load-only: files written while Bilinear still built a packed
+    # corner-row table (no class encodes to this name any more)
     "bilinear_packed": (
-        BilinearPacked,
-        lambda s: ({"extrapolate": s.extrapolates}, {}),
+        None,
+        None,
         lambda meta, arrs: Bilinear(extrapolate=meta["extrapolate"]),
     ),
 }
@@ -318,7 +313,4 @@ def load(path, allow_custom_import=False):
         x2 = jnp.asarray(z["x"])
         y2 = jnp.asarray(z["y"])
         d2 = jnp.asarray(z["data"])
-        if isinstance(strategy, Bilinear):
-            # re-derive the packed corner-row table where eligible
-            strategy = Bilinear(strategy.extrapolates).build(x2, y2, d2)
         return Interp2D.new_unchecked(x2, y2, d2, strategy)

@@ -2,8 +2,8 @@
 
 Reference: ``/root/reference/src/vector_extensions.rs:40-53`` classifies a
 vector with a short-circuiting state machine over consecutive pairs
-(``MonotonicState``, ``:114-198``).  On TPU a sequential state machine is
-the wrong shape; the same classification falls out of three vectorized
+(``MonotonicState``, ``:114-198``).  On an accelerator a sequential state
+machine is the wrong shape; the same classification falls out of three vectorized
 reductions over ``diff(x)``:
 
 * any pair rising, none falling  -> Rising  (strict iff no flat pair)

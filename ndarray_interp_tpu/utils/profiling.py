@@ -1,7 +1,7 @@
 """Profiling/tracing helpers.
 
 The reference ships only wall-clock criterion benches (SURVEY.md §5);
-the TPU-native observability story is XLA-level traces.  These wrappers
+observability here is XLA-level traces.  These wrappers
 put a stable API around ``jax.profiler``:
 
 * :func:`trace` — context manager writing a TensorBoard-loadable trace,

@@ -46,6 +46,40 @@ class TestCheckpoint:
             np.asarray(back.strategy.a), np.asarray(itp.strategy.a)
         )
 
+    def test_legacy_bilinear_packed_checkpoint_loads(self, tmp_path):
+        """Files written while Bilinear built a packed corner-row table
+        name the ``bilinear_packed`` codec; they load as plain Bilinear
+        and evaluate like a fresh build."""
+        import json
+
+        from ndarray_interp_tpu.interp2d import Bilinear
+
+        rng = np.random.default_rng(7)
+        x, y = np.arange(5.0), np.linspace(0.0, 2.0, 4)
+        z = rng.normal(size=(5, 4, 3))
+        header = {"kind": "interp2d", "strategy": "bilinear_packed",
+                  "strategy_meta": {"extrapolate": True}}
+        p = tmp_path / "old.npz"
+        np.savez(p, x=x, y=y, data=z, __header__=np.frombuffer(
+            json.dumps(header).encode(), dtype=np.uint8))
+        back = checkpoint.load(p)
+        assert type(back.strategy) is Bilinear
+        assert back.strategy.extrapolates
+        fresh = (
+            Interp2D.builder(jnp.asarray(z)).x(jnp.asarray(x))
+            .y(jnp.asarray(y)).strategy(Bilinear().extrapolate(True)).build()
+        )
+        qx = jnp.asarray(rng.uniform(-1, 5, 30))
+        qy = jnp.asarray(rng.uniform(-0.5, 2.5, 30))
+        np.testing.assert_array_equal(
+            np.asarray(back.interp_array(qx, qy)),
+            np.asarray(fresh.interp_array(qx, qy)),
+        )
+        # a saved Bilinear now writes the plain codec name
+        checkpoint.save(tmp_path / "new.npz", back)
+        with np.load(tmp_path / "new.npz") as f:
+            assert json.loads(bytes(f["__header__"]))["strategy"] == "bilinear"
+
     def test_roundtrip_2d(self, tmp_path):
         itp = Interp2D.builder(
             jnp.asarray(np.random.default_rng(1).normal(size=(5, 6, 2)))
@@ -95,7 +129,7 @@ def test_aliases_importable():
 def test_config_flags_exist():
     from ndarray_interp_tpu import config
 
-    assert isinstance(config.use_fused_kernel, bool)
+    assert isinstance(config.route_hygiene, bool)
     assert isinstance(config.use_native_host, bool)
 
 
@@ -245,8 +279,8 @@ class TestDoubleFloatEvaluator:
         got = ev(q)
         want = np.asarray(itp.interp_array(q))  # f64 CPU oracle
         scale = np.maximum(np.abs(want), 0.01 * np.abs(want).max())
-        # CPU path = plain-XLA DF formulation; kernel accuracy is pinned
-        # on hardware (test_tpu_parity).  Includes the 49-bit input
+        # the GPU runs the same XLA DF formulation, gated at 1e-12 by
+        # chip_smoke.py phase P5.  Includes the 49-bit input
         # representation error (slope-amplified) — still f64-grade.
         assert (np.abs(got - want) / scale).max() < 1e-9
 

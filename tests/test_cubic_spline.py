@@ -330,7 +330,7 @@ def test_extrapolate_periodic_len3_multidim():
     np.testing.assert_allclose(res, expect, rtol=0.001, atol=1e-7)
 
 
-# --- TPU-native additions (no reference analogue) ---------------------------
+# --- additions with no reference analogue ------------------------------------
 def test_batched_individual_matches_per_row_solve():
     """The vectorized Individual path must equal solving each row alone."""
     rng = np.random.default_rng(7)

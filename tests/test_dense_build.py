@@ -1,9 +1,10 @@
-"""Dense-operator spline build (the TPU wide-bank route).
+"""Dense-operator spline build (the off-CPU route for wide banks on
+short knot axes).
 
 For a shared knot axis and a uniform boundary family the build map
 ``data -> (a, b)`` is linear, so ``cubic._dense_ab`` probes it once on an
-identity bank and applies it as one matmul (see
-``config.dense_build_max_n``).  On TPU the route dispatches via
+identity bank and applies it as one matmul (``n <=
+cubic._DENSE_BUILD_MAX_N``).  The route is the non-CPU arm of a
 ``lax.platform_dependent``; these tests pin, on the CPU backend:
 
 * operator-vs-elimination agreement for every uniform boundary family
@@ -12,12 +13,10 @@ identity bank and applies it as one matmul (see
   the probed operator from the sequential solve;
 * the per-axis ``_dense_k`` twin used by the 2-D/N-D builds;
 * gradients through the dense route;
-* the public CPU build is untouched (platform default = the
-  reference-order scan, ``cubic_spline.rs:678-721``);
+* the public CPU build is untouched (the CPU arm = the reference-order
+  scan, ``cubic_spline.rs:678-721``), while the program exported for
+  CUDA carries the dense matmul;
 * the static eligibility predicate.
-
-On-chip agreement + the measured 4.8x NS5b win live in
-``benches/results_tpu.json`` and BASELINE.md (round-4 section).
 """
 
 import numpy as np
@@ -137,23 +136,22 @@ class TestDenseK:
 
 class TestDispatch:
     def test_eligibility(self):
-        from ndarray_interp_tpu import config
+        from ndarray_interp_tpu.models.strategies.cubic import (
+            _DENSE_BUILD_MAX_N,
+        )
 
         assert _dense_build_ok(64, 1000)
         assert not _dense_build_ok(64, 8)  # probe wider than the bank
-        assert not _dense_build_ok(config.dense_build_max_n + 1, 10**6)
-        old = config.use_fused_kernel
-        try:
-            config.use_fused_kernel = False
-            assert not _dense_build_ok(64, 1000)
-        finally:
-            config.use_fused_kernel = old
+        assert _dense_build_ok(_DENSE_BUILD_MAX_N, 10**6)
+        assert not _dense_build_ok(_DENSE_BUILD_MAX_N + 1, 10**6)
 
     def test_cpu_build_keeps_reference_order(self):
-        """On the CPU platform the dispatch's default branch runs, so the
+        """On the CPU platform the dispatch's CPU arm runs, so the
         public build stays BIT-identical to the scan solver even for
-        dense-eligible banks."""
-        from ndarray_interp_tpu import config
+        dense-eligible banks; the program exported for CUDA carries the
+        dense matmul instead of the scan loop."""
+        from jax import export
+
         from ndarray_interp_tpu.interp1d import Interp1D
         from ndarray_interp_tpu.interp1d.cubic_spline import CubicSpline
 
@@ -162,15 +160,15 @@ class TestDispatch:
         y = _bank(n, bank, seed=10)
         assert _dense_build_ok(n, bank)  # the dispatch IS reached
         built = Interp1D.builder(y).x(x).strategy(CubicSpline()).build()
-        old = config.use_fused_kernel
-        try:
-            config.use_fused_kernel = False  # forces the non-dense branch
-            ref = Interp1D.builder(y).x(x).strategy(CubicSpline()).build()
-        finally:
-            config.use_fused_kernel = old
+        a_ref, b_ref = jax.jit(
+            lambda x, y: _uniform_ab(x, y, _NOT_A_KNOT)
+        )(x, y)
         np.testing.assert_array_equal(
-            np.asarray(built.strategy.a), np.asarray(ref.strategy.a)
+            np.asarray(built.strategy.a), np.asarray(a_ref)
         )
         np.testing.assert_array_equal(
-            np.asarray(built.strategy.b), np.asarray(ref.strategy.b)
+            np.asarray(built.strategy.b), np.asarray(b_ref)
         )
+        build = jax.jit(lambda x, y: CubicSpline().build(x, y).a)
+        cuda = export.export(build, platforms=["cuda"])(x, y).mlir_module()
+        assert "dot_general" in cuda and "stablehlo.while" not in cuda

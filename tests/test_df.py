@@ -1,9 +1,8 @@
-"""Double-float arithmetic + DF fused-eval kernel tests.
+"""Double-float arithmetic + DF evaluation route tests.
 
 The error-free transforms must be *exact* (their defining property); the
-DF kernel must match the f64 oracle to ~1e-13 relative — the on-chip
-answer to BASELINE.json:5's "matching f64 accuracy" clause, on hardware
-whose native wide type stops at f32.
+DF routes must match the f64 oracle to ~1e-12 scale-relative — f64-grade
+answers from f32 arithmetic (``ops/df_eval.py``).
 """
 
 import numpy as np
@@ -11,7 +10,6 @@ import pytest
 
 import jax.numpy as jnp
 
-from ndarray_interp_tpu.ops import pallas_eval
 from ndarray_interp_tpu.ops.df import (
     df_add,
     df_div,
@@ -22,10 +20,7 @@ from ndarray_interp_tpu.ops.df import (
     two_prod,
     two_sum,
 )
-from ndarray_interp_tpu.ops.pallas_eval_df import (
-    eval_df_from_f64,
-    fused_eval_1d_df,
-)
+from ndarray_interp_tpu.ops.df_eval import eval_df_from_f64
 
 
 def rnd(shape, seed, lo=-10.0, hi=10.0):
@@ -79,14 +74,24 @@ class TestErrorFreeTransforms:
         assert rel.max() < 1e-14
 
 
+def _np_hermite(x, d, a, b, q):
+    """NumPy f64 oracle: clamped interval search + the symmetric Hermite
+    of ``cubic_spline.rs:818-828``."""
+    idx = np.clip(np.searchsorted(x, q, side="right") - 1, 0, len(x) - 2)
+    t = (q - x[idx]) / (x[idx + 1] - x[idx])
+    return (
+        (1 - t) * d[idx] + t * d[idx + 1]
+        + t * (1 - t) * (a[idx] * (1 - t) + b[idx] * t)
+    )
+
+
 def _spline_fixture(n=512, nq=4096, seed=7):
-    """Random non-uniform cubic table in f64 + the f64 XLA oracle.
+    """Random non-uniform cubic table in f64 + the f64 oracle.
 
     Inputs are rounded to DF-representable values (49-bit) first: the
     oracle then isolates the *arithmetic* error.  The irreducible input
-    representation error of the format is ~|x| * 2^-49 (documented in
-    BASELINE.md), which on knots of magnitude ~250 would otherwise
-    dominate the comparison."""
+    representation error of the format is ~|x| * 2^-49, which on knots
+    of magnitude ~250 would otherwise dominate the comparison."""
     rng = np.random.default_rng(seed)
 
     def rep(v):
@@ -97,26 +102,17 @@ def _spline_fixture(n=512, nq=4096, seed=7):
     a64 = rep(rng.normal(size=n - 1))
     b64 = rep(rng.normal(size=n - 1))
     q64 = rep(rng.uniform(x64[0] - 2.0, x64[-1] + 2.0, nq))
-    tbl64 = np.stack(
-        [x64[:-1], x64[1:], d64[:-1], d64[1:], a64, b64], axis=-1
-    )
-    oracle = np.asarray(
-        pallas_eval._eval_xla(
-            jnp.asarray(x64), jnp.asarray(tbl64), jnp.asarray(q64)
-        )
-    )
+    oracle = _np_hermite(x64, d64, a64, b64, q64)
     return x64, d64, a64, b64, q64, oracle
 
 
 class TestDFKernel:
-    """Accuracy asserts run the plain-XLA DF formulation: Pallas
-    *interpret* mode rewrites the error-free transforms (ops/df.py) so it
-    can only validate plumbing/selection; the kernel's own 1e-12 claim is
-    pinned on real hardware in tests/test_tpu_parity.py."""
+    """The scalar 1-D DF route (``eval_xla_df``) under CPU jit; the same
+    1e-12 gate runs on the card in ``chip_smoke.py`` phase P5."""
 
     def test_xla_df_matches_f64_oracle(self):
         x64, d64, a64, b64, q64, oracle = _spline_fixture()
-        got = eval_df_from_f64(x64, d64, a64, b64, q64, path="xla")
+        got = eval_df_from_f64(x64, d64, a64, b64, q64)
         # scale relative error by the data magnitude: where the spline
         # crosses zero the pointwise relative error is unbounded for ANY
         # finite precision (output cancellation), which says nothing
@@ -125,34 +121,17 @@ class TestDFKernel:
         rel = np.abs(got - oracle) / scale
         assert rel.max() < 1e-12, rel.max()
 
-    def test_kernel_plumbing_interpret(self):
-        """Interpret mode: selection/packing correct, f32-grade values
-        (the EFT error terms are lost to the interpreter, not the
-        kernel — see ops/df.py)."""
-        x64, d64, a64, b64, q64, oracle = _spline_fixture()
-        got = eval_df_from_f64(x64, d64, a64, b64, q64, interpret=True)
-        scale = np.maximum(np.abs(oracle), 0.01 * np.abs(d64).max())
-        rel = np.abs(got - oracle) / scale
-        assert rel.max() < 1e-4, rel.max()
-
     def test_f32_kernel_is_not_enough(self):
         """Sanity check the target is non-trivial: plain f32 evaluation
         misses 1e-12 by orders of magnitude on the same fixture."""
         x64, d64, a64, b64, q64, oracle = _spline_fixture()
-        f32 = lambda v: jnp.asarray(np.asarray(v, np.float32))
-        tbl = pallas_eval.make_interval_table(
-            f32(x64), f32(d64), f32(a64), f32(b64)
-        )
-        got = np.asarray(
-            pallas_eval._fused_eval_impl(
-                f32(x64), tbl, f32(q64), interpret=True
-            ),
-            np.float64,
-        )
+        f32 = lambda v: np.asarray(v, np.float32)
+        got = _np_hermite(f32(x64), f32(d64), f32(a64), f32(b64), f32(q64))
+        got = np.asarray(got, np.float64)
         rel = np.abs(got - oracle) / np.maximum(np.abs(oracle), 1e-30)
         assert rel.max() > 1e-9
 
-    @pytest.mark.parametrize("path", ["xla", "kernel"])
+    @pytest.mark.parametrize("path", ["xla"])
     def test_clamp_and_inf_semantics(self, path):
         """OOB queries clamp to the edge intervals; ±inf on a linear
         table extrapolates to ±inf (reference get_lower_index clamp +
@@ -162,25 +141,19 @@ class TestDFKernel:
         d64 = 2.0 * x64 + 1.0  # linear data, a = b = 0
         z = np.zeros(n - 1)
         q64 = np.array([x64[0] - 5.0, x64[-1] + 5.0, np.inf, -np.inf])
-        got = eval_df_from_f64(
-            x64, d64, z, z, q64, interpret=True, path=path
-        )
-        rtol = 1e-12 if path == "xla" else 1e-5
-        np.testing.assert_allclose(got[:2], 2.0 * q64[:2] + 1.0, rtol=rtol)
+        got = eval_df_from_f64(x64, d64, z, z, q64)
+        np.testing.assert_allclose(got[:2], 2.0 * q64[:2] + 1.0, rtol=1e-12)
         assert got[2] == np.inf and got[3] == -np.inf
 
-    @pytest.mark.parametrize("path", ["xla", "kernel"])
+    @pytest.mark.parametrize("path", ["xla"])
     def test_nan_query_propagates(self, path):
         x64 = np.arange(16.0)
         d64 = np.arange(16.0) ** 2
         z = np.zeros(15)
-        got = eval_df_from_f64(
-            x64, d64, z, z, np.array([np.nan, 2.5]),
-            interpret=True, path=path,
-        )
+        got = eval_df_from_f64(x64, d64, z, z, np.array([np.nan, 2.5]))
         assert np.isnan(got[0]) and np.isfinite(got[1])
 
-    @pytest.mark.parametrize("path", ["xla", "kernel"])
+    @pytest.mark.parametrize("path", ["xla"])
     def test_selection_resolves_f32_knot_collisions(self, path):
         """Two knots equal in f32 but distinct in f64: the DF compare
         still buckets a query between them correctly — an interval
@@ -191,9 +164,7 @@ class TestDFKernel:
         d64 = np.array([0.0, 10.0, 20.0, 30.0, 40.0])
         z = np.zeros(4)
         q64 = np.array([base + eps64 / 2])  # inside the micro-interval
-        got = eval_df_from_f64(
-            x64, d64, z, z, q64, interpret=True, path=path
-        )
+        got = eval_df_from_f64(x64, d64, z, z, q64)
         # linear within [base, base+eps64]: halfway between 10 and 20
         np.testing.assert_allclose(got[0], 15.0, rtol=1e-3)
 
@@ -204,7 +175,7 @@ class TestDFKernel:
             args.extend(df_from_f64(v))
         import jax
 
-        from ndarray_interp_tpu.ops.pallas_eval_df import eval_xla_df
+        from ndarray_interp_tpu.ops.df_eval import eval_xla_df
 
         hi, lo = jax.jit(eval_xla_df)(*args)
         got = df_to_f64(hi, lo)
@@ -215,7 +186,7 @@ class TestDFKernel:
 
 class TestDF2D:
     def test_bilinear_df_matches_f64_oracle(self):
-        from ndarray_interp_tpu.ops.pallas_eval_df import eval_xla_df_2d
+        from ndarray_interp_tpu.ops.df_eval import eval_xla_df_2d
 
         rng = np.random.default_rng(17)
 
@@ -312,14 +283,8 @@ def test_df_evaluator_nan_raises_in_extrapolate_mode():
 
 
 class TestDFBankedGatherRoute:
-    """DF banked gather route (VERDICT r2 task 3): DF (idx, t) kernel +
-    one packed (hi, lo) row gather + XLA DF tail.
-
-    Interpret mode rewrites the error-free transforms (ops/df.py), so
-    here only the *index* is exact and values are checked at f32 grade;
-    the <=1e-12 on-chip claim is pinned by
-    tests/test_tpu_parity.py::test_df_gathered_bank_f64_grade_on_chip.
-    """
+    """DF banked gather route: DF (idx, t) pass + one packed (hi, lo)
+    row gather + the DF tail."""
 
     def _fixture(self, n=512, bank=16, nq=2048, seed=12):
         rng = np.random.default_rng(seed)
@@ -334,11 +299,13 @@ class TestDFBankedGatherRoute:
         return x64, d64, a64, b64, q64
 
     def test_index_matches_df_oracle_interpret(self):
-        from ndarray_interp_tpu.ops.pallas_eval_df import fused_index_frac_df
+        import jax
+
+        from ndarray_interp_tpu.ops.df_eval import df_index_frac
 
         x64, _, _, _, q64 = self._fixture()
         args = [*df_from_f64(x64), *df_from_f64(q64)]
-        idx, th, tl = fused_index_frac_df(*map(jnp.asarray, args), interpret=True)
+        idx, th, tl = jax.jit(df_index_frac)(*map(jnp.asarray, args))
         # oracle: searchsorted on the f64 values (DF-lexicographic ==
         # f64 order for df_from_f64 pairs)
         want = np.clip(
@@ -347,10 +314,12 @@ class TestDFBankedGatherRoute:
         np.testing.assert_array_equal(np.asarray(idx), want)
         t64 = (q64 - x64[want]) / (x64[want + 1] - x64[want])
         got_t = np.asarray(th, np.float64) + np.asarray(tl, np.float64)
-        np.testing.assert_allclose(got_t, t64, rtol=1e-5, atol=1e-6)
+        # q64 is not DF-representable here: its ~2^-49 representation
+        # error bounds the t agreement
+        np.testing.assert_allclose(got_t, t64, rtol=1e-10, atol=1e-10)
 
     def test_values_match_banked_xla_form_interpret(self):
-        from ndarray_interp_tpu.ops.pallas_eval_df import (
+        from ndarray_interp_tpu.ops.df_eval import (
             eval_xla_df_banked,
             gathered_bank_eval_df,
         )
@@ -360,48 +329,55 @@ class TestDFBankedGatherRoute:
         for v in (x64, d64, a64, b64, q64):
             args.extend(df_from_f64(v))
         args = [jnp.asarray(v) for v in args]
-        hi, lo = gathered_bank_eval_df(*args, interpret=True)
+        hi, lo = gathered_bank_eval_df(*args)
         whi, wlo = eval_xla_df_banked(*args)
         got = np.asarray(hi, np.float64) + np.asarray(lo, np.float64)
         want = np.asarray(whi, np.float64) + np.asarray(wlo, np.float64)
         scale = np.maximum(np.abs(want), 0.01 * np.abs(d64).max())
-        assert (np.abs(got - want) / scale).max() < 1e-5
+        assert (np.abs(got - want) / scale).max() < 1e-12
 
-    def test_mosaic_tail_matches_xla_tail_interpret(self):
-        from ndarray_interp_tpu.ops.pallas_eval_df import (
+    def test_packed_tail_matches_f64_formula(self):
+        """The DF tail on gathered packed rows reads the right blocks:
+        it reproduces the f64 Hermite of the same (idx, t) at DF grade."""
+        import jax
+
+        from ndarray_interp_tpu.ops.df_eval import (
             _df_xla_tail,
-            banked_df_tail,
             pack_bank_rows_df,
         )
 
-        x64, d64, a64, b64, q64 = self._fixture(nq=1024)
-        dfd = df_from_f64(d64)
-        dfa = df_from_f64(a64)
-        dfb = df_from_f64(b64)
+        def rep(v):
+            return df_to_f64(*df_from_f64(v))
+
+        x64, d64, a64, b64, _ = self._fixture(nq=1024)
+        d64, a64, b64 = rep(d64), rep(a64), rep(b64)
         packed = pack_bank_rows_df(
-            *(jnp.asarray(v) for v in (*dfd, *dfa, *dfb))
+            *(jnp.asarray(v) for v in (
+                *df_from_f64(d64), *df_from_f64(a64), *df_from_f64(b64)
+            ))
         )
         rng = np.random.default_rng(3)
-        idx = jnp.asarray(rng.integers(0, len(x64) - 1, 1024), jnp.int32)
-        th, tl = (
-            jnp.asarray(v)
-            for v in df_from_f64(rng.uniform(-0.5, 1.5, 1024))
-        )
-        rows = jnp.take(packed, idx, axis=0)
+        idx = rng.integers(0, len(x64) - 1, 1024)
+        t64 = rep(rng.uniform(-0.5, 1.5, 1024))
+        th, tl = (jnp.asarray(v) for v in df_from_f64(t64))
+        rows = jnp.take(packed, jnp.asarray(idx, jnp.int32), axis=0)
         bank = d64.shape[1]
-        hi, lo = banked_df_tail(rows, th, tl, interpret=True)
-        whi, wlo = _df_xla_tail(rows, th, tl, bank)
-        got = np.asarray(hi[:, :bank], np.float64) + np.asarray(
-            lo[:, :bank], np.float64
+        hi, lo = jax.jit(lambda r, a, b: _df_xla_tail(r, a, b, bank))(
+            rows, th, tl
         )
-        want = np.asarray(whi, np.float64) + np.asarray(wlo, np.float64)
+        t = t64[:, None]
+        want = (
+            (1 - t) * d64[idx] + t * d64[idx + 1]
+            + t * (1 - t) * (a64[idx] * (1 - t) + b64[idx] * t)
+        )
+        got = df_to_f64(hi, lo)
         scale = np.maximum(np.abs(want), 0.01 * np.abs(d64).max())
-        assert (np.abs(got - want) / scale).max() < 1e-5
+        assert (np.abs(got - want) / scale).max() < 1e-12
 
 
 class TestDFBilinearGatherRoute:
-    """DF bilinear gather route (config-3 f64-grade story): DF (idx, t)
-    kernels + one packed (hi, lo) corner-row gather + Mosaic/XLA tail."""
+    """DF bilinear gather route: DF (idx, t) passes + one packed (hi, lo)
+    corner-row gather + the DF tail."""
 
     def _fixture(self, nx=96, ny=64, trailing=(), nq=2048, seed=27):
         rng = np.random.default_rng(seed)
@@ -414,7 +390,7 @@ class TestDFBilinearGatherRoute:
 
     @pytest.mark.parametrize("trailing", [(), (5,)])
     def test_matches_xla_2d_form_interpret(self, trailing):
-        from ndarray_interp_tpu.ops.pallas_eval_df import (
+        from ndarray_interp_tpu.ops.df_eval import (
             eval_xla_df_2d,
             gathered_bilinear_eval_df,
         )
@@ -423,13 +399,13 @@ class TestDFBilinearGatherRoute:
         args = []
         for v in (x64, y64, z64, qx64, qy64):
             args.extend(jnp.asarray(w) for w in df_from_f64(v))
-        hi, lo = gathered_bilinear_eval_df(*args, interpret=True)
+        hi, lo = gathered_bilinear_eval_df(*args)
         whi, wlo = eval_xla_df_2d(*args)
         got = np.asarray(hi, np.float64) + np.asarray(lo, np.float64)
         want = np.asarray(whi, np.float64) + np.asarray(wlo, np.float64)
         assert got.shape == (2048,) + trailing
         scale = np.maximum(np.abs(want), 0.01 * np.abs(z64).max())
-        assert (np.abs(got - want) / scale).max() < 1e-5
+        assert (np.abs(got - want) / scale).max() < 1e-12
 
     def test_serving_evaluator_2d_banked(self):
         from ndarray_interp_tpu.interp2d import Interp2D
@@ -472,12 +448,11 @@ def test_two_prod_broadcast_exact_under_jit():
 
 def test_banked_xla_df_f64_grade_on_cpu():
     """With the broadcast fix the banked XLA DF form reaches DF grade
-    on the CPU jit surface — same ~2.6e-12 max over 32k x bank samples
-    (near-cancellation points) as the on-chip gate; 4e-12 threshold
-    mirrors test_tpu_parity.py's banked gates."""
+    on the CPU jit surface — ~2.6e-12 max over 32k x bank samples
+    (near-cancellation points) under the strict per-point scale."""
     import jax
 
-    from ndarray_interp_tpu.ops.pallas_eval_df import eval_xla_df_banked
+    from ndarray_interp_tpu.ops.df_eval import eval_xla_df_banked
 
     rng = np.random.default_rng(33)
     n, bank, nq = 256, 8, 4096
@@ -508,8 +483,8 @@ def test_banked_xla_df_f64_grade_on_cpu():
 
 class TestDFBicubicGatherRoute:
     """f64-grade tensor-product cubic (the beyond-reference flagship
-    2-D strategy): DF (idx, t) kernels + packed DF cell-row gather +
-    Mosaic/guarded-XLA scaled-Hermite tail."""
+    2-D strategy): DF (idx, t) passes + packed DF cell-row gather +
+    guarded scaled-Hermite tail."""
 
     def _build(self, trailing=(), nx=20, ny=16, seed=37, bc=None):
         import jax
@@ -537,7 +512,7 @@ class TestDFBicubicGatherRoute:
     def test_route_matches_f64_strategy(self, trailing):
         import jax
 
-        from ndarray_interp_tpu.ops.pallas_eval_df import (
+        from ndarray_interp_tpu.ops.df_eval import (
             gathered_bicubic_eval_df,
         )
 
@@ -607,8 +582,7 @@ class TestDFBicubicGatherRoute:
 
 class TestDFBicubicNodeRoute:
     """The memory-frugal f64-grade bicubic route: 4 DF node-row gathers
-    + the DF tail with in-tail derivative scaling (streaming Mosaic
-    kernel on TPU, guarded-XLA chain elsewhere).  Must match the f64
+    + the DF tail with in-tail derivative scaling.  Must match the f64
     node-layout strategy eval (and hence the cell route)."""
 
     def _build(self, trailing=(), nx=18, ny=15, seed=41, monkeypatch=None):
@@ -635,7 +609,7 @@ class TestDFBicubicNodeRoute:
     def test_route_matches_f64_strategy(self, trailing, monkeypatch):
         import jax
 
-        from ndarray_interp_tpu.ops.pallas_eval_df import (
+        from ndarray_interp_tpu.ops.df_eval import (
             gathered_bicubic_nodes_eval_df,
             pack_bicubic_nodes_df,
         )
@@ -680,7 +654,7 @@ class TestDFBicubicNodeRoute:
         assert (np.abs(got - want) / scale).max() < 1e-9
 
     def test_chunked_tail_matches_unchunked(self, monkeypatch):
-        """The lax.map chunking (the 59 GB OOM fix) keeps f64 grade.
+        """The lax.map chunking (the live-memory cap) keeps f64 grade.
 
         hi halves are bit-identical; lo halves differ in last-bit
         rounding only (XLA:CPU compiles the loop body with different
@@ -689,7 +663,7 @@ class TestDFBicubicNodeRoute:
         scale, checked here against the f64 strategy oracle)."""
         import jax
 
-        from ndarray_interp_tpu.ops.pallas_eval_df import (
+        from ndarray_interp_tpu.ops.df_eval import (
             gathered_bicubic_nodes_eval_df,
             pack_bicubic_nodes_df,
         )
@@ -719,45 +693,12 @@ class TestDFBicubicNodeRoute:
         got = df_to_f64(chk_h, chk_l).reshape(400)
         assert (np.abs(got - want) / scale).max() < 1e-9
 
-    def test_pair_fetch_matches_quad(self, monkeypatch):
-        """fetch="pair" (one 2-row sliced gather per x-node) is
-        bit-identical to the 4-gather quad fetch."""
-        import jax
-
-        from ndarray_interp_tpu.ops.pallas_eval_df import (
-            gathered_bicubic_nodes_eval_df,
-            pack_bicubic_nodes_df,
-        )
-
-        itp, rng = self._build(monkeypatch=monkeypatch)
-        x64 = np.asarray(itp.x, np.float64)
-        y64 = np.asarray(itp.y, np.float64)
-        rows64 = np.asarray(itp.strategy.rows, np.float64)
-        packed = pack_bicubic_nodes_df(*df_from_f64(rows64))
-        span = x64[-1] - x64[0]
-        qx = rng.uniform(x64[0] - span / 4, x64[-1] + span / 4, 400)
-        qy = rng.uniform(y64[0], y64[-1], 400)
-        args = []
-        for v in (x64, y64):
-            args.extend(jnp.asarray(w) for w in df_from_f64(v))
-        args.append(packed)
-        for v in (qx, qy):
-            args.extend(jnp.asarray(w) for w in df_from_f64(v))
-        qh, ql = jax.jit(
-            lambda *a: gathered_bicubic_nodes_eval_df(*a, r=1)
-        )(*args)
-        ph, pl = jax.jit(
-            lambda *a: gathered_bicubic_nodes_eval_df(*a, r=1, fetch="pair")
-        )(*args)
-        np.testing.assert_array_equal(np.asarray(qh), np.asarray(ph))
-        np.testing.assert_array_equal(np.asarray(ql), np.asarray(pl))
-
     def test_extrapolation_matches_strategy(self, monkeypatch):
         """The node route extrapolates via the same clamped-cell
         arithmetic as the strategy (extrapolate=True built above)."""
         import jax
 
-        from ndarray_interp_tpu.ops.pallas_eval_df import (
+        from ndarray_interp_tpu.ops.df_eval import (
             gathered_bicubic_nodes_eval_df,
             pack_bicubic_nodes_df,
         )
@@ -788,55 +729,10 @@ class TestDFBicubicNodeRoute:
         assert (np.abs(got - want) / scale).max() < 1e-9
 
 
-    @pytest.mark.parametrize("r", [1, 16])
-    def test_node_tail_kernel_interpret_plumbing(self, r):
-        """The Mosaic node-tail kernel's block-interleaved slicing,
-        coord extraction, and tile streaming index the right channels —
-        interpret-mode values are f32-grade (EFTs rewritten) but any
-        block/coord mix-up would be O(1) wrong vs the guarded-XLA twin
-        (`_df_node_tail`) run on the same gathered rows."""
-        import jax
-
-        from ndarray_interp_tpu.ops.pallas_eval_df import (
-            _df_node_tail,
-            bicubic_df_node_tail,
-            pack_bicubic_nodes_df,
-        )
-
-        rng = np.random.default_rng(7)
-        nn, nq, bq = 40, 512, 256
-        nodes64 = rng.normal(size=(nn, 4 * r + 2))
-        # coords: monotone x/y per node so dx, dy are well-scaled
-        nodes64[:, 4 * r + 0] = np.cumsum(rng.uniform(0.2, 1.0, nn))
-        nodes64[:, 4 * r + 1] = np.cumsum(rng.uniform(0.2, 1.0, nn))
-        packed = pack_bicubic_nodes_df(
-            *(jnp.asarray(v) for v in df_from_f64(nodes64))
-        )
-        idx = rng.integers(0, nn - 1, size=(4, nq))
-        g = [jnp.take(packed, jnp.asarray(i), axis=0) for i in idx]
-        t64 = rng.uniform(0, 1, size=(4, nq))
-        t = [jnp.asarray(v, jnp.float32) for v in t64]
-        hi, lo = bicubic_df_node_tail(
-            *g, *t, r=r, interpret=True, bq=bq
-        )
-        wh, wl = jax.jit(
-            lambda *a: _df_node_tail(
-                a[0], a[1], a[2], a[3],
-                a[4][:, None], a[5][:, None], a[6][:, None], a[7][:, None],
-                r,
-            )
-        )(*g, *t)
-        got = np.asarray(hi, np.float64) + np.asarray(lo, np.float64)
-        want = np.asarray(wh, np.float64) + np.asarray(wl, np.float64)
-        scale = np.abs(want).max()
-        assert np.abs(got - want).max() / scale < 1e-5
-
-
 class TestDFBicubicWeightTail:
-    """Round 3: the weight-form DF bicubic tail (lane-packed Mosaic
-    kernel + the per-block guarded-XLA twin).  The guarded-XLA test is
-    the CI-visible f64-grade gate (interpret mode rewrites the EFTs, so
-    the kernel itself is pinned on chip by test_tpu_parity)."""
+    """The DF bicubic cell tail (``df_eval._df_bicubic_tail``, the
+    5-Hermite nesting on gathered (hi, lo) rows) at DF grade under CPU
+    jit, against an f64 NumPy oracle."""
 
     def _fixture(self, B=512, r=16, seed=11):
         rng = np.random.default_rng(seed)
@@ -869,81 +765,53 @@ class TestDFBicubicWeightTail:
         g_y2 = herm(g[:, 2, 1], g[:, 2, 3], g[:, 3, 1], g[:, 3, 3], tx)
         return herm(f_y1, f_y2, g_y1, g_y2, ty)
 
-    def test_guarded_xla_jit_f64_grade(self):
-        """The per-block two_prod form survives XLA:CPU jit at DF grade
-        (the lane-packed broadcast+concat form collapses the Veltkamp
-        splits below HLO — measured 7e-8 — which is why the body
-        branches on _GUARDED; see _df_bicubic_weight_tail)."""
+    def _tail(self, rows, t, r):
         import jax
 
-        from ndarray_interp_tpu.ops.df_records import (
-            _df_bicubic_weight_tail,
-        )
+        from ndarray_interp_tpu.ops.df_eval import _df_bicubic_tail
 
-        r = 16
-        rows64, rows, tx64, ty64, t = self._fixture(r=r)
-        hi, lo = jax.jit(
-            lambda rw, a, b, c, d: _df_bicubic_weight_tail(
-                rw, a[:, None], b[:, None], c[:, None], d[:, None], r
+        bp = -(-r // 8) * 8
+        return jax.jit(
+            lambda rw, a, b, c, d: _df_bicubic_tail(
+                rw, a[:, None], b[:, None], c[:, None], d[:, None], bp
             )
         )(rows, *t)
+
+    def test_guarded_xla_jit_f64_grade(self):
+        """The guarded EFT chain survives XLA:CPU jit at DF grade."""
+        r = 16
+        rows64, rows, tx64, ty64, t = self._fixture(r=r)
+        hi, lo = self._tail(rows, t, r)
         got = np.asarray(hi, np.float64) + np.asarray(lo, np.float64)
         want = self._oracle(rows64, tx64, ty64, r)
         scale = np.abs(want).max()
         assert np.abs(got - want).max() / scale < 1e-12
 
-    @pytest.mark.parametrize("r", [8, 16])
-    @pytest.mark.parametrize("tail", ["weight", "mxu"])
-    def test_kernel_interpret_plumbing(self, r, tail):
-        """Lane packing / tile streaming / the MXU one-hot weight-row
-        build index the right blocks — interpret-mode values are
-        f32-grade (EFTs rewritten) but any block mix-up would be O(1)
-        wrong."""
-        from ndarray_interp_tpu.ops.df_records import bicubic_df_tail_w
-        from ndarray_interp_tpu.ops.pallas_eval_df import bicubic_df_tail_mxu
+    @pytest.mark.parametrize("r", [3, 8])
+    def test_padded_blocks_f64_grade(self, r):
+        """Padded blocks (``bp`` lanes per quantity, here r=3 → 8) are
+        sliced back correctly: the tail on ``pack_bicubic_rows_df`` rows
+        matches the oracle at DF grade."""
+        from ndarray_interp_tpu.ops.df_eval import pack_bicubic_rows_df
 
-        fn = {"weight": bicubic_df_tail_w, "mxu": bicubic_df_tail_mxu}[tail]
-        rows64, rows, tx64, ty64, t = self._fixture(r=r)
-        hi, lo = fn(rows, *t, interpret=True)
-        got = np.asarray(hi, np.float64) + np.asarray(lo, np.float64)
+        rng = np.random.default_rng(19 + r)
+        B = 256
+        rows64 = rng.normal(size=(B, 16 * r))
+        rh, rl = (jnp.asarray(v) for v in df_from_f64(rows64))
+        rows = pack_bicubic_rows_df(rh, rl, r)
+        tx64 = rng.uniform(-0.5, 1.5, B)
+        ty64 = rng.uniform(-0.5, 1.5, B)
+        t = []
+        for v in (tx64, ty64):
+            t.extend(jnp.asarray(w) for w in df_from_f64(v))
+        hi, lo = self._tail(rows, t, r)
+        got = (
+            np.asarray(hi[:, :r], np.float64)
+            + np.asarray(lo[:, :r], np.float64)
+        )
         want = self._oracle(rows64, tx64, ty64, r)
         scale = np.abs(want).max()
-        assert np.abs(got - want).max() / scale < 1e-5
-
-    def test_weight_route_interpret_matches_nested_route(self):
-        """gathered_bicubic_eval_df_packed(tail=weight) == (tail=nested)
-        through the full route (CPU falls to the same XLA branch; this
-        pins the tail switch plumbing)."""
-        import jax
-
-        from ndarray_interp_tpu.ops.pallas_eval_df import (
-            gathered_bicubic_eval_df_packed,
-            pack_bicubic_rows_df,
-        )
-
-        rng = np.random.default_rng(12)
-        nx, ny, r = 12, 10, 3
-        x64 = np.cumsum(rng.uniform(0.2, 1.0, nx))
-        y64 = np.cumsum(rng.uniform(0.2, 1.0, ny))
-        rows64 = rng.normal(size=((nx - 1) * (ny - 1), 16 * r))
-        rh, rl = (jnp.asarray(v) for v in df_from_f64(rows64))
-        packed = pack_bicubic_rows_df(rh, rl, r)
-        qx = rng.uniform(x64[0], x64[-1], 200)
-        qy = rng.uniform(y64[0], y64[-1], 200)
-        args = []
-        for v in (x64, y64):
-            args.extend(jnp.asarray(w) for w in df_from_f64(v))
-        args.append(packed)
-        for v in (qx, qy):
-            args.extend(jnp.asarray(w) for w in df_from_f64(v))
-        out_w = jax.jit(
-            lambda *a: gathered_bicubic_eval_df_packed(*a, r=r, tail="weight")
-        )(*args)
-        out_n = jax.jit(
-            lambda *a: gathered_bicubic_eval_df_packed(*a, r=r, tail="nested")
-        )(*args)
-        for gw, gn in zip(out_w, out_n):
-            np.testing.assert_array_equal(np.asarray(gw), np.asarray(gn))
+        assert np.abs(got - want).max() / scale < 1e-12
 
 
 class TestF48BicubicTier:
@@ -977,7 +845,7 @@ class TestF48BicubicTier:
     def test_pack_unpack_roundtrip_exact(self):
         """Unpacking returns EXACTLY bf16(lo) widened to f32 (bf16→f32
         appends 16 zero bits), and the hi half is untouched."""
-        from ndarray_interp_tpu.ops.pallas_eval_df import (
+        from ndarray_interp_tpu.ops.df_eval import (
             _unpack_f48_lo,
             pack_bicubic_rows_df,
             pack_bicubic_rows_f48,
@@ -1008,7 +876,7 @@ class TestF48BicubicTier:
         route, two-three short of DF; gate with headroom at 1e-8."""
         import jax
 
-        from ndarray_interp_tpu.ops.pallas_eval_df import (
+        from ndarray_interp_tpu.ops.df_eval import (
             gathered_bicubic_eval_f48_packed,
             pack_bicubic_rows_f48,
         )
@@ -1035,32 +903,6 @@ class TestF48BicubicTier:
         want = np.asarray(itp.interp_array(qx, qy))
         scale = np.maximum(np.abs(want), 0.01 * np.abs(want).max())
         assert (np.abs(got - want) / scale).max() < 1e-8
-
-    def test_tail_interpret_plumbing(self):
-        """The Mosaic f48 tail's in-kernel unpack + MXU chain indexes
-        the right blocks — interpret-mode values are f32-grade (EFTs
-        rewritten) but any block or bit-shift mix-up would be O(1)
-        wrong."""
-        from ndarray_interp_tpu.ops.pallas_eval_df import (
-            bicubic_f48_tail,
-            pack_bicubic_rows_f48,
-        )
-
-        rng = np.random.default_rng(11)
-        B, r = 512, 16
-        rows64 = rng.normal(size=(B, 16 * r))
-        rh, rl = (jnp.asarray(v) for v in df_from_f64(rows64))
-        rows = pack_bicubic_rows_f48(rh, rl, r)
-        tx64 = rng.uniform(-0.5, 1.5, B)
-        ty64 = rng.uniform(-0.5, 1.5, B)
-        t = []
-        for v in (tx64, ty64):
-            t.extend(jnp.asarray(w) for w in df_from_f64(v))
-        hi, lo = bicubic_f48_tail(rows, *t, interpret=True)
-        got = np.asarray(hi, np.float64) + np.asarray(lo, np.float64)
-        want = TestDFBicubicWeightTail._oracle(rows64, tx64, ty64, r)
-        scale = np.abs(want).max()
-        assert np.abs(got - want).max() / scale < 1e-5
 
     def test_serving_grade_kwarg(self, monkeypatch):
         """DoubleFloatEvaluator2D(grade="f48") serves the tier; the
@@ -1118,43 +960,6 @@ class TestF48BicubicTier:
         scale = np.maximum(np.abs(want), 0.01 * np.abs(want).max())
         assert (np.abs(got - want) / scale).max() < 1e-8
 
-    def test_bilinear_f48_tail_interpret_plumbing(self):
-        """The Mosaic f48 bilinear tail's in-kernel unpack indexes the
-        right corner blocks (interpret-mode values f32-grade)."""
-        from ndarray_interp_tpu.ops.pallas_eval_df import (
-            _df_bilinear_xla_tail,
-            _unpack_f48_lo,
-            bilinear_f48_tail,
-            pack_bilinear_rows_f48,
-        )
-
-        rng = np.random.default_rng(43)
-        nx, ny, r = 16, 12, 3
-        z64 = rng.normal(size=(nx, ny, r))
-        packed = pack_bilinear_rows_f48(
-            *(jnp.asarray(v) for v in df_from_f64(z64))
-        )
-        idx = jnp.asarray(rng.integers(0, (nx - 1) * (ny - 1), 512), jnp.int32)
-        rows = jnp.take(packed, idx, axis=0)
-        bp = packed.shape[1] // 6
-        t = []
-        for _ in range(2):
-            t.extend(
-                jnp.asarray(v) for v in df_from_f64(rng.uniform(0, 1, 512))
-            )
-        hi, lo = bilinear_f48_tail(rows, *t, interpret=True)
-        full = jnp.concatenate(
-            [rows[:, : 4 * bp], _unpack_f48_lo(rows[:, 4 * bp :])], axis=1
-        )
-        whi, wlo = _df_bilinear_xla_tail(full, *t, r)
-        got = np.asarray(hi[:, :r], np.float64) + np.asarray(
-            lo[:, :r], np.float64
-        )
-        want = df_to_f64(whi, wlo)
-        scale = np.maximum(np.abs(want), 0.01 * np.abs(z64).max())
-        assert (np.abs(got - want) / scale).max() < 1e-5
-
-
 class TestF48BankTier:
     """Round 4: the bf16-lo "f48" tier extended to the banked 1-D
     route (NS2-series) — the last DF eval surface without it.  Same
@@ -1176,7 +981,7 @@ class TestF48BankTier:
     def test_pack_unpack_roundtrip_exact(self):
         """Unpacking returns EXACTLY bf16(lo) widened to f32, the hi
         half matches the DF pack, and channels are 6/8 of DF's."""
-        from ndarray_interp_tpu.ops.pallas_eval_df import (
+        from ndarray_interp_tpu.ops.df_eval import (
             _unpack_f48_lo,
             pack_bank_rows_df,
             pack_bank_rows_f48,
@@ -1208,7 +1013,7 @@ class TestF48BankTier:
         (measured ~1e-10); gate with headroom at 1e-8."""
         import jax
 
-        from ndarray_interp_tpu.ops.pallas_eval_df import (
+        from ndarray_interp_tpu.ops.df_eval import (
             eval_xla_df_banked,
             gathered_bank_eval_f48_packed,
             pack_bank_rows_f48,
@@ -1242,26 +1047,24 @@ class TestF48BankTier:
         assert (np.abs(got - want) / scale).max() < 1e-8
 
     def test_tail_interpret_plumbing(self):
-        """The Mosaic f48 bank tail's in-kernel unpack indexes the
-        right blocks — interpret-mode values are f32-grade (EFTs
-        rewritten) but any block or bit-shift mix-up would be O(1)
-        wrong."""
-        from ndarray_interp_tpu.ops.pallas_eval_df import (
+        """The f48 route's bf16 unpack indexes the right blocks: on the
+        same gathered rows it agrees with the DF tail to the bf16-lo
+        grade (~2^-33), which any block or bit-shift mix-up would
+        miss by O(1)."""
+        from ndarray_interp_tpu.ops.df_eval import (
             _df_xla_tail,
             _unpack_f48_lo,
-            banked_f48_tail,
+            pack_bank_rows_df,
             pack_bank_rows_f48,
         )
 
         x64, d64, a64, b64, _ = self._fixture(nq=1024)
-        packed = pack_bank_rows_f48(
-            *(
-                jnp.asarray(v)
-                for v in (
-                    *df_from_f64(d64), *df_from_f64(a64), *df_from_f64(b64)
-                )
-            )
-        )
+        pairs = [
+            jnp.asarray(v)
+            for v in (*df_from_f64(d64), *df_from_f64(a64), *df_from_f64(b64))
+        ]
+        packed = pack_bank_rows_f48(*pairs)
+        packed_df = pack_bank_rows_df(*pairs)
         rng = np.random.default_rng(3)
         idx = jnp.asarray(rng.integers(0, len(x64) - 1, 1024), jnp.int32)
         th, tl = (
@@ -1271,17 +1074,15 @@ class TestF48BankTier:
         rows = jnp.take(packed, idx, axis=0)
         bank = d64.shape[1]
         bp = packed.shape[1] // 6
-        hi, lo = banked_f48_tail(rows, th, tl, interpret=True)
         full = jnp.concatenate(
             [rows[:, : 4 * bp], _unpack_f48_lo(rows[:, 4 * bp :])], axis=1
         )
-        whi, wlo = _df_xla_tail(full, th, tl, bank)
-        got = np.asarray(hi[:, :bank], np.float64) + np.asarray(
-            lo[:, :bank], np.float64
-        )
+        hi, lo = _df_xla_tail(full, th, tl, bank)
+        whi, wlo = _df_xla_tail(jnp.take(packed_df, idx, axis=0), th, tl, bank)
+        got = df_to_f64(hi, lo)
         want = df_to_f64(whi, wlo)
         scale = np.maximum(np.abs(want), 0.01 * np.abs(d64).max())
-        assert (np.abs(got - want) / scale).max() < 1e-5
+        assert (np.abs(got - want) / scale).max() < 1e-8
 
     def test_serving_grade_kwarg(self):
         """DoubleFloatEvaluator(grade="f48") serves the tier on banked
@@ -1322,7 +1123,7 @@ def test_df_lower_index_blocked_matches_direct():
     direct compare-all form, including on hi-collision knots."""
     import jax
 
-    from ndarray_interp_tpu.ops.pallas_eval_df import _df_lower_index
+    from ndarray_interp_tpu.ops.df_eval import _df_lower_index
 
     rng = np.random.default_rng(67)
     n = 300
@@ -1344,7 +1145,7 @@ def test_df_lower_index_blocked_matches_direct():
 
 
 # ---------------------------------------------------------------------------
-# Double-float InterpND (ops/pallas_eval_df_nd.py + DoubleFloatEvaluatorND)
+# Double-float InterpND (ops/df_eval.py + DoubleFloatEvaluatorND)
 # ---------------------------------------------------------------------------
 
 
@@ -1428,47 +1229,6 @@ class TestDoubleFloatND:
         with pytest.raises(ValueError, match="nearest"):
             DoubleFloatEvaluatorND(nearest)
 
-    @pytest.mark.parametrize("k,nbasis", [(2, 4), (3, 4), (3, 2)])
-    def test_nd_tail_mxu_interpret_matches_xla(self, k, nbasis):
-        """The Mosaic ND DF tail (interpret mode) against its
-        guarded-XLA twin: identical interpolant, DF-rounding-level
-        agreement."""
-        from ndarray_interp_tpu.ops.df import df_from_f64, df_to_f64
-        from ndarray_interp_tpu.ops.pallas_eval_df_nd import (
-            _df_nd_weight_tail_xla,
-            nd_df_tail_mxu,
-        )
-
-        rng = np.random.default_rng(41 + k + nbasis)
-        r, nq = 3, 256
-        bp = 8
-        nb = nbasis**k
-        rows64 = rng.normal(size=(nq, 2 * nb * bp))
-        # zero the pad lanes + the lo half's sub-f32 content the way the
-        # packer produces them: hi/lo split of an f64 payload
-        payload = rng.normal(size=(nq, nb * bp))
-        h, l = df_from_f64(payload)
-        rows = np.concatenate([np.asarray(h), np.asarray(l)], axis=1)
-        rows = jnp.asarray(rows, jnp.float32)
-        ts64 = [rng.uniform(0.0, 1.0, nq) for _ in range(k)]
-        ts_flat = []
-        for t in ts64:
-            ts_flat.extend(jnp.asarray(v) for v in df_from_f64(t))
-        hi, lo = nd_df_tail_mxu(
-            rows, ts_flat, k, nbasis=nbasis, interpret=True
-        )
-        ths = [ts_flat[2 * d] for d in range(k)]
-        tls = [ts_flat[2 * d + 1] for d in range(k)]
-        whi, wlo = _df_nd_weight_tail_xla(rows, ths, tls, k, bp, nbasis)
-        got = df_to_f64(hi[:, :r], lo[:, :r])
-        want = df_to_f64(whi[:, :r], wlo[:, :r])
-        scale = np.maximum(np.abs(want), 1e-3)
-        # interpret mode executes the kernel body through XLA:CPU,
-        # whose simplifier collapses the unguarded (no_guard) EFT
-        # sequences to plain f32 — this checks routing/layout only;
-        # the DF grade itself is pinned on chip (test_tpu_parity.py)
-        assert (np.abs(got - want) / scale).max() < 1e-4
-
     @pytest.mark.parametrize("k,method", [(2, "cubic"), (2, "linear")])
     def test_evaluator_nd_f48_grade(self, k, method):
         """The ND f48 tier (bf16-pair lo half): 75% of the DF table's
@@ -1491,43 +1251,3 @@ class TestDoubleFloatND:
         assert (np.abs(got - want) / scale).max() < 1e-8
         with pytest.raises(ValueError, match="grade must be"):
             DoubleFloatEvaluatorND(itp, grade="f24")
-
-    @pytest.mark.parametrize("k,nbasis", [(2, 4), (3, 2)])
-    def test_nd_f48_tail_interpret_matches_xla(self, k, nbasis):
-        """The f48 tail's in-kernel bf16 unpack + MXU chain (interpret
-        mode) against the unpack-then-XLA twin — routing/layout check
-        (EFTs rewritten under interpret; grade pinned on chip)."""
-        from ndarray_interp_tpu.ops.df import df_from_f64, df_to_f64
-        from ndarray_interp_tpu.ops.pallas_eval_df import _unpack_f48_lo
-        from ndarray_interp_tpu.ops.pallas_eval_df_nd import (
-            _df_nd_weight_tail_xla,
-            nd_df_tail_mxu,
-            pack_rows_nd_f48,
-        )
-
-        rng = np.random.default_rng(47 + k + nbasis)
-        r, nq = 8, 256
-        bp = 8
-        nb = nbasis**k
-        payload = rng.normal(size=(nq, nb * r))
-        h, l = (jnp.asarray(v) for v in df_from_f64(payload))
-        rows = pack_rows_nd_f48(h, l, nb, r)
-        assert rows.shape == (nq, (3 * nb * bp) // 2)
-        ts64 = [rng.uniform(0.0, 1.0, nq) for _ in range(k)]
-        ts_flat = []
-        for t in ts64:
-            ts_flat.extend(jnp.asarray(v) for v in df_from_f64(t))
-        hi, lo = nd_df_tail_mxu(
-            rows, ts_flat, k, nbasis=nbasis, interpret=True, tier="f48"
-        )
-        full = jnp.concatenate(
-            [rows[:, : nb * bp], _unpack_f48_lo(rows[:, nb * bp :])],
-            axis=1,
-        )
-        ths = [ts_flat[2 * d] for d in range(k)]
-        tls = [ts_flat[2 * d + 1] for d in range(k)]
-        whi, wlo = _df_nd_weight_tail_xla(full, ths, tls, k, bp, nbasis)
-        got = df_to_f64(hi[:, :r], lo[:, :r])
-        want = df_to_f64(whi[:, :r], wlo[:, :r])
-        scale = np.maximum(np.abs(want), 1e-3)
-        assert (np.abs(got - want) / scale).max() < 1e-4

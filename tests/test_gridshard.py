@@ -117,10 +117,8 @@ class TestInterpNDGridShard:
             config, "interpnd_pack_max_elems", cell_elems // 2
         )
         auto = _grid_interp(shape, k, "cubic", layout=None)
-        # the cap must force off the cell layout (round 5 added the
-        # paired-node middle tiers, so the exact pick depends on what
-        # fits — any node-family layout witnesses the degradation)
-        assert auto.layout in ("node", "node2", "node4"), auto.layout
+        # the cap forces the node layout
+        assert auto.layout == "node", auto.layout
         ev = shard_interpnd_grid(auto, mesh)  # shards re-pack as cells
         per_dev_elems = ev.tbl_shards.shape[1] * ev.tbl_shards.shape[2]
         assert per_dev_elems <= config.interpnd_pack_max_elems, (

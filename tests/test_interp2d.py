@@ -211,7 +211,7 @@ def test_interp2d_2d_scalar_type():
 
 
 def test_jit_vmap_2d():
-    """TPU-native addition: jit + vmap through the 2-D pytree."""
+    """Addition beyond the reference: jit + vmap through the 2-D pytree."""
     import jax
 
     interp = (

@@ -851,21 +851,24 @@ def test_int_data_promotes_to_float():
 
 
 # ---------------------------------------------------------------------------
-# Layout cost model + forced-layout dispatch (round 4)
+# Layout choice + forced-layout dispatch
 # ---------------------------------------------------------------------------
 
 
-def test_route_cost_model_cell_dominates():
-    """The measured-law model (one 4^k r-channel gather vs 2^k node-row
-    gathers) says the cell route is never slower — node exists for
-    memory, so auto-dispatch picks cell whenever it fits the cap."""
-    for k in (2, 3, 4):
-        for r in (1, 4, 16, 64):
-            c = InterpND.route_cost_ns(k, (64,) * k, r, "cell")
-            n = InterpND.route_cost_ns(k, (64,) * k, r, "node")
-            assert c <= n, (k, r, c, n)
-    # at k=3, r=1 the node route is ~8 gathers at the 6 ns/row floor
-    assert InterpND.route_cost_ns(3, (64,) * 3, 1, "node") == 8 * 6.0
+def test_route_cost_model_cell_dominates(monkeypatch):
+    """Auto-dispatch picks the cell table whenever it fits the cap (one
+    row gather: measured faster than every node layout) and the plain
+    node table otherwise — exactly at the cap boundary."""
+    from ndarray_interp_tpu import config
+
+    axes, data, _ = _grid_case(3, seed=78, sizes=[6, 5, 4])
+    cell_elems = 5 * 4 * 3 * 4**3
+    monkeypatch.setattr(config, "interpnd_pack_max_elems", cell_elems)
+    fit = InterpND.builder(data).points(*axes).method("cubic").build()
+    assert fit.layout == "cell"
+    monkeypatch.setattr(config, "interpnd_pack_max_elems", cell_elems - 1)
+    over = InterpND.builder(data).points(*axes).method("cubic").build()
+    assert over.layout == "node"
 
 
 def test_layout_dispatch_by_cap_and_force():

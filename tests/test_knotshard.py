@@ -1,10 +1,9 @@
-"""Knot-axis sharding tests (VERDICT r2 task 4).
+"""Knot-axis sharding tests.
 
 The knot/coefficient axis splits over a mesh in contiguous shards with a
 one-knot halo; ownership masks partition the query space and one psum
 combines.  Checked against the replicated single-device oracle on the
-8-device CPU mesh, including a run at 2x the single-device big-route cap
-(``bigknots.MAX_BIG_KNOTS``).
+8-device CPU mesh, including a 16.8M-knot axis.
 """
 
 import numpy as np
@@ -14,15 +13,33 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh
 
-from ndarray_interp_tpu.ops.bigknots import MAX_BIG_KNOTS
 from ndarray_interp_tpu.ops.knotshard import (
-    max_sharded_knots,
     pack_knot_shards,
     place_knot_shards,
     shard_geometry,
     sharded_knot_eval,
 )
-from ndarray_interp_tpu.ops.pallas_eval import _eval_xla, make_interval_table
+from ndarray_interp_tpu.ops.searchsorted import get_lower_index
+
+
+def make_interval_table(x, data, a=None, b=None):
+    """Per-interval channels ``[x_l, x_r, y_l, y_r, a, b]`` (linear:
+    a = b = 0, which collapses the Hermite form to the lerp)."""
+    za = jnp.zeros_like(data[:-1]) if a is None else a
+    zb = jnp.zeros_like(data[:-1]) if b is None else b
+    return jnp.stack([x[:-1], x[1:], data[:-1], data[1:], za, zb], axis=-1)
+
+
+def _eval_xla(knots, tbl, q):
+    """Single-device oracle: search, one row gather, the symmetric
+    Hermite of ``cubic_spline.rs:818-828`` with the ±inf lerp guard."""
+    idx = get_lower_index(knots, q)
+    rows = tbl[idx]
+    x_l, x_r, y_l, y_r, a, b = (rows[..., i] for i in range(6))
+    t = (q - x_l) / (x_r - x_l)
+    base = (1 - t) * y_l + t * y_r + t * (1 - t) * (a * (1 - t) + b * t)
+    lin_inf = jnp.isinf(t) & (a == 0) & (b == 0)
+    return jnp.where(lin_inf, y_l + t * (y_r - y_l), base)
 
 
 def _mesh():
@@ -120,11 +137,10 @@ def test_ownership_partitions_queries():
 
 
 def test_beyond_single_device_cap():
-    """2x MAX_BIG_KNOTS on the 8-device mesh: each shard is a big-route
-    local problem; the global axis is past any single-device path."""
+    """A 16.8M-knot axis on the 8-device mesh: each shard searches its
+    own 2.1M knots."""
     mesh = _mesh()
-    n = 2 * MAX_BIG_KNOTS + 7
-    assert n <= max_sharded_knots(8)
+    n = 2 * 65535 * 128 + 7
     nq = 32768
     rng = np.random.default_rng(9)
     x = np.linspace(0.0, 1000.0, n, dtype=np.float32)
@@ -417,64 +433,6 @@ def test_two_axis_mesh_banked():
         + t * (1 - t) * (an[idx] * (1 - t) + bn[idx] * t)
     )
     np.testing.assert_allclose(got, want, rtol=2e-5, atol=1e-4)
-
-
-def test_pallas_search_inside_shard_map():
-    """The fused Pallas bucketize runs INSIDE the shard body (interpret
-    mode on the CPU mesh) and matches the XLA-search path exactly."""
-    mesh = _mesh()
-    n = 4097  # S+1 = 513 local knots: a windowed-plan size
-    x, d, a, b, q = _problem(n, 2048, seed=57)
-    shards = pack_knot_shards(x, d, a, b, 8)
-    got = np.asarray(
-        jax.jit(
-            lambda *s: sharded_knot_eval(
-                *s, mesh=mesh, n=n, axis="knot", pallas=True,
-                interpret=True,
-            )
-        )(*shards, q)
-    )
-    want = np.asarray(
-        jax.jit(
-            lambda *s: sharded_knot_eval(*s, mesh=mesh, n=n, axis="knot")
-        )(*shards, q)
-    )
-    nan = np.isnan(want)
-    assert np.isnan(got[nan]).all()
-    np.testing.assert_array_equal(got[~nan], want[~nan])
-
-
-def test_pallas_big_route_search_inside_shard_map():
-    """Past _LOCAL_BIG local knots the big-route block search runs its
-    Pallas pass inside the shard body (interpret mode)."""
-    from ndarray_interp_tpu.ops.knotshard import _LOCAL_BIG
-
-    mesh = _mesh()
-    n = 8 * _LOCAL_BIG + 9  # local S+1 > _LOCAL_BIG on every shard
-    nq = 1024
-    rng = np.random.default_rng(58)
-    x = np.linspace(0.0, 100.0, n, dtype=np.float32)
-    d = rng.normal(size=n).astype(np.float32)
-    a = rng.normal(size=n - 1).astype(np.float32)
-    b = rng.normal(size=n - 1).astype(np.float32)
-    q = rng.uniform(-1.0, 101.0, nq).astype(np.float32)
-    shards = pack_knot_shards(
-        jnp.asarray(x), jnp.asarray(d), jnp.asarray(a), jnp.asarray(b), 8
-    )
-    got = np.asarray(
-        jax.jit(
-            lambda *s: sharded_knot_eval(
-                *s, mesh=mesh, n=n, axis="knot", pallas=True,
-                interpret=True,
-            )
-        )(*shards, jnp.asarray(q))
-    )
-    want = np.asarray(
-        jax.jit(
-            lambda *s: sharded_knot_eval(*s, mesh=mesh, n=n, axis="knot")
-        )(*shards, jnp.asarray(q))
-    )
-    np.testing.assert_array_equal(got, want)
 
 
 def test_oob_nan_mask_matches_driver_contract():

@@ -6,6 +6,7 @@ Reference: ``/root/reference/src/vector_extensions.rs:200-403``.
 import numpy as np
 import pytest
 
+import jax
 import jax.numpy as jnp
 
 from ndarray_interp_tpu.ops.searchsorted import get_lower_index
@@ -85,7 +86,7 @@ class TestGetLowerIndex:
             assert get_lower_index(axis, np.log1p(xi / 10.0)) == xi // 10
 
     def test_vectorized_matches_scalar(self):
-        # TPU-native addition: the batched path is the hot path.
+        # Addition beyond the reference: the batched path is the hot path.
         axis = exp_axis()
         q = jnp.linspace(-1.0, 2000.0, 257)
         batched = np.asarray(get_lower_index(axis, q))
@@ -153,49 +154,53 @@ class TestMonotonic:
             monotonic_prop(np.zeros((2, 2)))
 
 
-class TestOnehotGather:
-    """The MXU one-hot row gather must reproduce ``table[idx]`` exactly
-    (it is selection by exact 0/1 weights; the f32 path additionally rides
-    a 3-way bf16 truncation split that reconstructs rows bit-for-bit)."""
+def _hermite_oracle(x, d, a, b, q):
+    """NumPy twin of the cubic route: interval search, then the
+    symmetric Hermite of ``cubic_spline.rs:818-828``."""
+    idx = np.clip(np.searchsorted(x, q, side="right") - 1, 0, x.shape[0] - 2)
+    t = (q - x[idx]) / (x[idx + 1] - x[idx])
+    t = t.reshape(t.shape + (1,) * (d.ndim - 1))
+    return (
+        (1 - t) * d[idx] + t * d[idx + 1]
+        + t * (1 - t) * (a[idx] * (1 - t) + b[idx] * t)
+    )
 
-    def test_f32_split_path_bit_exact(self):
-        from ndarray_interp_tpu.ops.gather import _onehot_gather
 
-        rng = np.random.default_rng(0)
-        table = jnp.asarray(
-            (rng.normal(size=(257, 33)) * 10.0 ** rng.integers(-20, 20, (257, 33)))
-            .astype(np.float32)
+class TestRowGather:
+    """The cubic eval route fetches ``[y_l, y_r, a, b]`` with ONE stacked
+    row gather; it must equal the per-quantity formula for every table
+    shape and dtype."""
+
+    def _check(self, n, trailing, nq, dtype, rtol, seed):
+        from ndarray_interp_tpu.interp1d import CubicSpline, Interp1D
+
+        rng = np.random.default_rng(seed)
+        x = np.cumsum(rng.uniform(0.1, 1.0, n)).astype(dtype)
+        d = (
+            rng.normal(size=(n,) + trailing)
+            * 10.0 ** rng.integers(-6, 6, (n,) + trailing)
+        ).astype(dtype)
+        itp = (
+            Interp1D.builder(jnp.asarray(d)).x(jnp.asarray(x))
+            .strategy(CubicSpline().extrapolate(True)).build()
         )
-        idx = jnp.asarray(rng.integers(0, 257, 4096).astype(np.int32))
-        got = np.asarray(_onehot_gather(table, idx))
-        want = np.asarray(table)[np.asarray(idx)]
-        np.testing.assert_array_equal(got, want)
+        q = rng.uniform(x[0] - 1, x[-1] + 1, nq).astype(dtype)
+        got = np.asarray(jax.jit(lambda t, qq: t(qq))(itp, jnp.asarray(q)))
+        a = np.asarray(itp.strategy.a)
+        b = np.asarray(itp.strategy.b)
+        want = _hermite_oracle(x, d, a, b, q)
+        assert got.shape == (nq,) + trailing
+        scale = np.abs(want).max()
+        np.testing.assert_allclose(got, want, rtol=rtol, atol=rtol * scale)
 
-    def test_f64_highest_path(self):
-        from ndarray_interp_tpu.ops.gather import _onehot_gather
+    def test_f32_bank(self):
+        self._check(257, (33,), 4096, np.float32, 2e-6, 0)
 
-        rng = np.random.default_rng(1)
-        table = jnp.asarray(rng.normal(size=(64, 9)))
-        idx = jnp.asarray(rng.integers(0, 64, 333).astype(np.int32))
-        got = np.asarray(_onehot_gather(table, idx))
-        np.testing.assert_array_equal(got, np.asarray(table)[np.asarray(idx)])
+    def test_f64_bank(self):
+        self._check(64, (9,), 333, np.float64, 1e-13, 1)
 
-    def test_chunked_large_query(self):
-        from ndarray_interp_tpu.ops.gather import _onehot_gather, _MAX_OH_ELEMS
+    def test_long_axis_large_query(self):
+        self._check(8192, (8,), 40_000, np.float32, 2e-6, 2)
 
-        rng = np.random.default_rng(2)
-        n = 8192
-        table = jnp.asarray(rng.normal(size=(n, 8)).astype(np.float32))
-        q = _MAX_OH_ELEMS // n + 1000  # force the lax.map chunk path
-        idx = jnp.asarray(rng.integers(0, n, q).astype(np.int32))
-        got = np.asarray(_onehot_gather(table, idx))
-        np.testing.assert_array_equal(got, np.asarray(table)[np.asarray(idx)])
-
-    def test_gather_rows_nd_trailing(self):
-        from ndarray_interp_tpu.ops.gather import gather_rows
-
-        rng = np.random.default_rng(3)
-        table = jnp.asarray(rng.normal(size=(31, 3, 5)).astype(np.float32))
-        idx = jnp.asarray(rng.integers(0, 31, 17).astype(np.int32))
-        got = np.asarray(gather_rows(table, idx))
-        np.testing.assert_array_equal(got, np.asarray(table)[np.asarray(idx)])
+    def test_nd_trailing(self):
+        self._check(31, (3, 5), 17, np.float32, 2e-6, 3)

@@ -1,7 +1,7 @@
 """Mesh-sharding tests on the 8-virtual-device CPU mesh.
 
 The reference has no distributed layer (SURVEY.md §2: parallelism
-inventory); these tests cover the TPU-native scale-out design —
+inventory); these tests cover the scale-out design —
 bank-sharded construction and query-sharded evaluation — plus the driver
 dry-run entry.
 """
@@ -101,199 +101,57 @@ def test_dryrun_multichip():
     __graft_entry__.dryrun_multichip(8, n_knots=256, bank=512, n_q=8192)
 
 
-# -- Pallas kernels under a mesh (interpret mode) -----------------------------
-#
-# ``lax.platform_dependent`` routes CPU meshes to the XLA formulations, so
-# these tests call the sharded kernel wrappers (ops/partition.py) directly
-# in interpret mode: same partitioning path as a real TPU mesh, kernel body
-# executed by the interpreter.
+# -- the eval routes under a mesh (GSPMD partitions the plain XLA forms) -----
 
 
-def _fused_fixture(nq=4096, n=256, seed=3):
-    from ndarray_interp_tpu.ops.pallas_eval import make_interval_table
-
+def _f32_bank(n=24, bank=32, seed=7):
     rng = np.random.default_rng(seed)
-    x = jnp.asarray(
-        np.cumsum(rng.uniform(0.1, 1.0, n)).astype(np.float32)
+    x = jnp.asarray(np.cumsum(rng.uniform(0.1, 1.0, n)).astype(np.float32))
+    data = jnp.asarray(rng.normal(size=(n, bank)).astype(np.float32))
+    itp = (
+        Interp1D.builder(data).x(x)
+        .strategy(CubicSpline().extrapolate(True)).build()
     )
-    d = jnp.asarray(rng.normal(size=n).astype(np.float32))
-    a = jnp.asarray(rng.normal(size=n - 1).astype(np.float32))
-    b = jnp.asarray(rng.normal(size=n - 1).astype(np.float32))
-    tbl = make_interval_table(x, d, a, b)
     lo, hi = float(x[0]), float(x[-1])
-    q = jnp.asarray(
-        rng.uniform(lo - 1.0, hi + 1.0, nq).astype(np.float32)
-    )
-    return x, tbl, q
+    q = jnp.asarray(rng.uniform(lo - 1.0, hi + 1.0, 1024).astype(np.float32))
+    return itp, q
 
 
-def test_fused_eval_kernel_under_mesh():
-    """The fused eval kernel partitions over the query axis: sharded
-    result equals the XLA oracle, output keeps the query sharding."""
-    from ndarray_interp_tpu.ops.partition import sharded_fused_eval
-    from ndarray_interp_tpu.ops.pallas_eval import _eval_xla
-
-    x, tbl, q = _fused_fixture()
-    mesh1 = make_mesh(8, axis_names=("query",))
-    qs = jax.device_put(q, NamedSharding(mesh1, P("query")))
-    out = jax.jit(sharded_fused_eval(True))(x, tbl, qs)
-    assert out.sharding.spec == P("query")
-    ref = _eval_xla(x, tbl, q)
-    np.testing.assert_allclose(
-        np.asarray(out), np.asarray(ref), rtol=1e-5, atol=1e-6
-    )
-
-
-def test_fused_lower_index_under_mesh():
-    from ndarray_interp_tpu.ops.partition import sharded_lower_index
+def test_lower_index_under_mesh():
+    """The interval search partitions over the query axis: sharded result
+    equals the unsharded one and keeps the query sharding."""
     from ndarray_interp_tpu.ops.searchsorted import get_lower_index
 
-    x, _, q = _fused_fixture()
+    itp, q = _f32_bank()
     mesh1 = make_mesh(8, axis_names=("query",))
     qs = jax.device_put(q, NamedSharding(mesh1, P("query")))
-    out = jax.jit(sharded_lower_index(True))(x, qs)
+    out = jax.jit(lambda qq: get_lower_index(itp.x, qq))(qs)
     assert out.sharding.spec == P("query")
     np.testing.assert_array_equal(
-        np.asarray(out), np.asarray(get_lower_index(x, q))
-    )
-
-
-def test_fused_index_frac_under_mesh():
-    """The one-pass (idx, t) kernel partitions over the query axis —
-    the pass every f32 gather-route strategy (cubic wide-bank, bicubic)
-    runs before its row gather."""
-    from ndarray_interp_tpu.ops.partition import sharded_index_frac
-    from ndarray_interp_tpu.ops.searchsorted import get_lower_index
-
-    x, _, q = _fused_fixture()
-    mesh1 = make_mesh(8, axis_names=("query",))
-    qs = jax.device_put(q, NamedSharding(mesh1, P("query")))
-    idx, t = jax.jit(sharded_index_frac(True))(x, qs)
-    assert idx.sharding.spec == P("query")
-    assert t.sharding.spec == P("query")
-    want_idx = get_lower_index(x, q)
-    np.testing.assert_array_equal(np.asarray(idx), np.asarray(want_idx))
-    x_l = np.asarray(x)[np.asarray(want_idx)]
-    x_r = np.asarray(x)[np.asarray(want_idx) + 1]
-    want_t = (np.asarray(q) - x_l) / (x_r - x_l)
-    np.testing.assert_allclose(np.asarray(t), want_t, rtol=1e-6, atol=1e-6)
-
-
-def test_banked_kernel_under_mesh(mesh):
-    """banked_eval partitions (query x bank) with zero communication."""
-    from ndarray_interp_tpu.ops.partition import (
-        _gather_form_2d,
-        sharded_banked_eval,
-    )
-
-    rng = np.random.default_rng(4)
-    n, bank, nq = 32, 64, 256
-    d2 = jnp.asarray(rng.normal(size=(n, bank)).astype(np.float32))
-    a2 = jnp.asarray(rng.normal(size=(n - 1, bank)).astype(np.float32))
-    b2 = jnp.asarray(rng.normal(size=(n - 1, bank)).astype(np.float32))
-    idx = jnp.asarray(rng.integers(0, n - 1, nq), jnp.int32)
-    t = jnp.asarray(rng.uniform(0, 1, nq).astype(np.float32))
-
-    tbl_sh = NamedSharding(mesh, P(None, "bank"))
-    q_sh = NamedSharding(mesh, P("query"))
-    args = (
-        jax.device_put(d2, tbl_sh),
-        jax.device_put(a2, tbl_sh),
-        jax.device_put(b2, tbl_sh),
-        jax.device_put(idx, q_sh),
-        jax.device_put(t, q_sh),
-    )
-    out = jax.jit(sharded_banked_eval(True))(*args)
-    assert out.sharding.spec == P("query", "bank")
-    ref = _gather_form_2d(d2, a2, b2, idx, t)
-    np.testing.assert_allclose(
-        np.asarray(out), np.asarray(ref), rtol=1e-6, atol=1e-6
-    )
-
-
-def test_fused_eval_vmap_flattens_queries():
-    """vmap over the query axis routes through the kernel (flatten rule)."""
-    from ndarray_interp_tpu.ops.partition import sharded_fused_eval
-    from ndarray_interp_tpu.ops.pallas_eval import _eval_xla
-
-    x, tbl, q = _fused_fixture(nq=1024)
-    fe = sharded_fused_eval(True)
-    out = jax.vmap(lambda qq: fe(x, tbl, qq))(q.reshape(4, 256))
-    ref = _eval_xla(x, tbl, q).reshape(4, 256)
-    np.testing.assert_allclose(
-        np.asarray(out), np.asarray(ref), rtol=1e-5, atol=1e-6
-    )
-
-
-def test_fused_eval_vmap_batched_tables_falls_back():
-    """vmap that batches the interpolator tables uses the XLA oracle."""
-    from ndarray_interp_tpu.ops.partition import sharded_fused_eval
-    from ndarray_interp_tpu.ops.pallas_eval import _eval_xla
-
-    x, tbl, q = _fused_fixture(nq=512)
-    tbl_b = jnp.stack([tbl, tbl * 2.0])
-    fe = sharded_fused_eval(True)
-    out = jax.vmap(fe, in_axes=(None, 0, None))(x, tbl_b, q)
-    ref = jax.vmap(_eval_xla, in_axes=(None, 0, None))(x, tbl_b, q)
-    np.testing.assert_allclose(
-        np.asarray(out), np.asarray(ref), rtol=1e-5, atol=1e-6
+        np.asarray(out), np.asarray(get_lower_index(itp.x, q))
     )
 
 
 def test_gathered_route_under_mesh(mesh):
-    """The gather-route banked eval partitions (query x bank) with zero
-    communication, like the banked kernel."""
-    from ndarray_interp_tpu.ops.partition import (
-        _gather_form_2d,
-        sharded_gathered_eval,
-    )
-
-    rng = np.random.default_rng(7)
-    n, bank, nq = 24, 32, 1024
-    d2 = jnp.asarray(rng.normal(size=(n, bank)).astype(np.float32))
-    a2 = jnp.asarray(rng.normal(size=(n - 1, bank)).astype(np.float32))
-    b2 = jnp.asarray(rng.normal(size=(n - 1, bank)).astype(np.float32))
-    idx = jnp.asarray(rng.integers(0, n - 1, nq), jnp.int32)
-    t = jnp.asarray(rng.uniform(0, 1, nq).astype(np.float32))
-
-    tbl_sh = NamedSharding(mesh, P(None, "bank"))
-    q_sh = NamedSharding(mesh, P("query"))
-    out = jax.jit(sharded_gathered_eval(True))(
-        jax.device_put(d2, tbl_sh),
-        jax.device_put(a2, tbl_sh),
-        jax.device_put(b2, tbl_sh),
-        jax.device_put(idx, q_sh),
-        jax.device_put(t, q_sh),
-    )
-    assert out.sharding.spec == P("query", "bank")
-    ref = _gather_form_2d(d2, a2, b2, idx, t)
-    np.testing.assert_allclose(
-        np.asarray(out), np.asarray(ref), rtol=1e-5, atol=1e-5
-    )
+    """The f32 bank route (search + one stacked row gather + Hermite)
+    partitions query x bank with zero communication: a bank-sharded
+    table and query-sharded queries give the unsharded values, sharded
+    over both axes."""
+    itp, q = _f32_bank()
+    want = jax.jit(lambda t, qq: t(qq))(itp, q)
+    sharded = shard_interp1d(itp, mesh)
+    got = sharded_eval_1d(sharded, q, mesh)
+    assert got.sharding.spec == P("query", "bank")
+    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
 
 
-def test_banked_vmap_flattens_queries(mesh):
-    from ndarray_interp_tpu.ops.partition import (
-        _gather_form_2d,
-        sharded_banked_eval,
-    )
-
-    rng = np.random.default_rng(5)
-    n, bank, nq = 16, 8, 64
-    d2 = jnp.asarray(rng.normal(size=(n, bank)).astype(np.float32))
-    a2 = jnp.asarray(rng.normal(size=(n - 1, bank)).astype(np.float32))
-    b2 = jnp.asarray(rng.normal(size=(n - 1, bank)).astype(np.float32))
-    idx = jnp.asarray(rng.integers(0, n - 1, nq), jnp.int32)
-    t = jnp.asarray(rng.uniform(0, 1, nq).astype(np.float32))
-
-    f = sharded_banked_eval(True)
-    out = jax.vmap(
-        lambda i_, t_: f(d2, a2, b2, i_, t_)
-    )(idx.reshape(4, 16), t.reshape(4, 16))
-    ref = _gather_form_2d(d2, a2, b2, idx, t).reshape(4, 16, bank)
-    np.testing.assert_allclose(
-        np.asarray(out), np.asarray(ref), rtol=1e-6, atol=1e-6
-    )
+def test_banked_vmap_flattens_queries():
+    """vmap over a batch of query vectors equals the flat evaluation."""
+    itp, q = _f32_bank()
+    f = jax.jit(lambda t, qq: t(qq))
+    out = jax.vmap(lambda qq: itp(qq))(q.reshape(4, 256))
+    want = np.asarray(f(itp, q)).reshape(4, 256, -1)
+    np.testing.assert_allclose(np.asarray(out), want, rtol=1e-6, atol=1e-6)
 
 
 def test_graft_entry_compiles():
@@ -328,11 +186,11 @@ def test_sharded_eval_2d_matches_replicated(mesh):
 
 
 def test_df_kernel_under_mesh():
-    """The double-float kernel shards over the query axis (both hi and
-    lo outputs); result matches the plain-XLA DF formulation."""
+    """The scalar double-float route with query-sharded inputs: both hi
+    and lo outputs keep the query sharding and equal the unsharded
+    route."""
     from ndarray_interp_tpu.ops.df import df_from_f64, df_to_f64
-    from ndarray_interp_tpu.ops.partition import sharded_df_eval
-    from ndarray_interp_tpu.ops.pallas_eval_df import eval_xla_df
+    from ndarray_interp_tpu.ops.df_eval import eval_xla_df
 
     rng = np.random.default_rng(13)
     n, nq = 128, 2048
@@ -350,63 +208,29 @@ def test_df_kernel_under_mesh():
     sharded_args = list(args)
     sharded_args[8] = jax.device_put(args[8], q_sh)
     sharded_args[9] = jax.device_put(args[9], q_sh)
-    hi, lo = jax.jit(sharded_df_eval(True))(*sharded_args)
+    hi, lo = jax.jit(eval_xla_df)(*sharded_args)
     assert hi.sharding.spec == P("query")
     want = df_to_f64(*jax.jit(eval_xla_df)(*args))
     got = df_to_f64(np.asarray(hi), np.asarray(lo))
-    # interpret mode loses the EFT error terms (ops/df.py): f32-grade
-    # agreement here; the 1e-12 bound is pinned on hardware
-    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
-
-
-def test_gathered_vmap_partial_batching():
-    """vmap batching only idx (shared t) or only t (shared idx) must
-    broadcast the unbatched operand (review finding: flattening one
-    while the other kept its shape crashed the kernel call)."""
-    from ndarray_interp_tpu.ops.partition import (
-        _gather_form_2d,
-        sharded_banked_eval,
-        sharded_gathered_eval,
-    )
-
-    rng = np.random.default_rng(31)
-    n, bank, nq, bdim = 16, 8, 16, 4
-    d2 = jnp.asarray(rng.normal(size=(n, bank)).astype(np.float32))
-    a2 = jnp.asarray(rng.normal(size=(n - 1, bank)).astype(np.float32))
-    b2 = jnp.asarray(rng.normal(size=(n - 1, bank)).astype(np.float32))
-    idx_b = jnp.asarray(rng.integers(0, n - 1, (bdim, nq)), jnp.int32)
-    t_shared = jnp.asarray(rng.uniform(0, 1, nq).astype(np.float32))
-
-    for fmaker in (sharded_gathered_eval, sharded_banked_eval):
-        f = fmaker(True)
-        out = jax.vmap(f, in_axes=(None, None, None, 0, None))(
-            d2, a2, b2, idx_b, t_shared
-        )
-        want = np.stack(
-            [
-                np.asarray(_gather_form_2d(d2, a2, b2, idx_b[i], t_shared))
-                for i in range(bdim)
-            ]
-        )
-        np.testing.assert_allclose(
-            np.asarray(out), want, rtol=1e-5, atol=1e-5
-        )
+    np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-12)
 
 
 def test_df_gather_routes_under_mesh(mesh):
-    """Round 3: the DF gather routes carry query-axis partition rules
-    (tables replicate, zero communication) — sharded outputs equal the
-    unsharded XLA formulation."""
+    """The DF gather routes with replicated tables and query-sharded
+    queries: outputs stay query-sharded and equal the unsharded XLA
+    formulation."""
     from ndarray_interp_tpu.ops.df import df_from_f64, df_to_f64
-    from ndarray_interp_tpu.ops.pallas_eval_df import (
-        eval_xla_df_banked,
-        pack_bank_rows_df,
-        pack_bilinear_rows_df,
+    from ndarray_interp_tpu.ops.df_eval import (
         eval_xla_df_2d,
-    )
-    from ndarray_interp_tpu.ops.partition import (
-        sharded_df_banked_packed,
-        sharded_df_bilinear_packed,
+        eval_xla_df_banked,
+        gathered_bank_eval_df_packed,
+        gathered_bank_eval_f48_packed,
+        gathered_bilinear_eval_df_packed,
+        gathered_bilinear_eval_f48_packed,
+        pack_bank_rows_df,
+        pack_bank_rows_f48,
+        pack_bilinear_rows_df,
+        pack_bilinear_rows_f48,
     )
 
     rng = np.random.default_rng(71)
@@ -427,21 +251,19 @@ def test_df_gather_routes_under_mesh(mesh):
     qh, ql = (jnp.asarray(w) for w in df_from_f64(q64))
     qh_s = jax.device_put(qh, q_sh)
     ql_s = jax.device_put(ql, q_sh)
-    hi, lo = jax.jit(sharded_df_banked_packed(bank, True))(
-        pairs[0], pairs[1], packed, qh_s, ql_s
-    )
+    hi, lo = jax.jit(
+        lambda *a: gathered_bank_eval_df_packed(*a[:3], bank, *a[3:])
+    )(pairs[0], pairs[1], packed, qh_s, ql_s)
     assert hi.sharding.spec[0] == "query", hi.sharding
     whi, wlo = eval_xla_df_banked(*pairs, qh, ql)
     np.testing.assert_allclose(
         df_to_f64(hi, lo), df_to_f64(whi, wlo), rtol=1e-5, atol=1e-5
     )
-    # the banked f48 tier shares the rule's operand structure (6bp rows)
-    from ndarray_interp_tpu.ops.pallas_eval_df import pack_bank_rows_f48
-
+    # the banked f48 tier shares the operand structure (6bp rows)
     packed48 = pack_bank_rows_f48(*pairs[2:8])
-    hi48, lo48 = jax.jit(sharded_df_banked_packed(bank, True, tier="f48"))(
-        pairs[0], pairs[1], packed48, qh_s, ql_s
-    )
+    hi48, lo48 = jax.jit(
+        lambda *a: gathered_bank_eval_f48_packed(*a[:3], bank, *a[3:])
+    )(pairs[0], pairs[1], packed48, qh_s, ql_s)
     assert hi48.sharding.spec[0] == "query", hi48.sharding
     np.testing.assert_allclose(
         df_to_f64(hi48, lo48), df_to_f64(whi, wlo), rtol=1e-5, atol=1e-5
@@ -460,9 +282,9 @@ def test_df_gather_routes_under_mesh(mesh):
     packed2 = pack_bilinear_rows_df(p2[4], p2[5])
     qxp = [jax.device_put(jnp.asarray(w), q_sh) for w in df_from_f64(qx64)]
     qyp = [jax.device_put(jnp.asarray(w), q_sh) for w in df_from_f64(qy64)]
-    hi2, lo2 = jax.jit(sharded_df_bilinear_packed(ny, 1, True))(
-        p2[0], p2[1], p2[2], p2[3], packed2, *qxp, *qyp
-    )
+    hi2, lo2 = jax.jit(
+        lambda *a: gathered_bilinear_eval_df_packed(*a[:5], ny, 1, *a[5:])
+    )(p2[0], p2[1], p2[2], p2[3], packed2, *qxp, *qyp)
     assert hi2.sharding.spec[0] == "query", hi2.sharding
     w2h, w2l = eval_xla_df_2d(
         *p2, *(jnp.asarray(w) for w in df_from_f64(qx64)),
@@ -472,13 +294,11 @@ def test_df_gather_routes_under_mesh(mesh):
         df_to_f64(hi2, lo2).ravel(), df_to_f64(w2h, w2l).ravel(),
         rtol=1e-5, atol=1e-5,
     )
-    # the bilinear f48 tier shares the rule's operand structure
-    from ndarray_interp_tpu.ops.pallas_eval_df import pack_bilinear_rows_f48
-
+    # the bilinear f48 tier shares the operand structure
     packed2f = pack_bilinear_rows_f48(p2[4], p2[5])
-    h2f, l2f = jax.jit(sharded_df_bilinear_packed(ny, 1, True, tier="f48"))(
-        p2[0], p2[1], p2[2], p2[3], packed2f, *qxp, *qyp
-    )
+    h2f, l2f = jax.jit(
+        lambda *a: gathered_bilinear_eval_f48_packed(*a[:5], ny, 1, *a[5:])
+    )(p2[0], p2[1], p2[2], p2[3], packed2f, *qxp, *qyp)
     assert h2f.sharding.spec[0] == "query", h2f.sharding
     np.testing.assert_allclose(
         df_to_f64(h2f, l2f).ravel(), df_to_f64(w2h, w2l).ravel(),
@@ -487,14 +307,16 @@ def test_df_gather_routes_under_mesh(mesh):
 
 
 def test_df_bicubic_route_under_mesh():
-    """The bicubic DF partition rule, exercised with query-sharded
-    inputs (the banked/bilinear rules have their own case above)."""
+    """The bicubic DF cell route with query-sharded inputs (the
+    banked/bilinear routes have their own case above)."""
     from ndarray_interp_tpu.ops.df import df_from_f64, df_to_f64
-    from ndarray_interp_tpu.ops.pallas_eval_df import (
+    from ndarray_interp_tpu.ops.df_eval import (
         gathered_bicubic_eval_df,
+        gathered_bicubic_eval_df_packed,
+        gathered_bicubic_eval_f48_packed,
         pack_bicubic_rows_df,
+        pack_bicubic_rows_f48,
     )
-    from ndarray_interp_tpu.ops.partition import sharded_df_bicubic_packed
 
     rng = np.random.default_rng(73)
     mesh1 = make_mesh(8, axis_names=("query",))
@@ -513,9 +335,9 @@ def test_df_bicubic_route_under_mesh():
     packed = pack_bicubic_rows_df(*rows_pair, r)
     qxp = [jax.device_put(jnp.asarray(w), q_sh) for w in df_from_f64(qx64)]
     qyp = [jax.device_put(jnp.asarray(w), q_sh) for w in df_from_f64(qy64)]
-    hi, lo = jax.jit(sharded_df_bicubic_packed(r, True))(
-        *pairs, packed, *qxp, *qyp
-    )
+    hi, lo = jax.jit(
+        lambda *a: gathered_bicubic_eval_df_packed(*a, r=r)
+    )(*pairs, packed, *qxp, *qyp)
     assert hi.sharding.spec[0] == "query", hi.sharding
     whi, wlo = gathered_bicubic_eval_df(
         *pairs, *rows_pair,
@@ -526,13 +348,11 @@ def test_df_bicubic_route_under_mesh():
     np.testing.assert_allclose(
         df_to_f64(hi, lo), df_to_f64(whi, wlo), rtol=1e-5, atol=1e-5
     )
-    # the f48 tier shares the rule's operand structure (24bp rows)
-    from ndarray_interp_tpu.ops.pallas_eval_df import pack_bicubic_rows_f48
-
+    # the f48 tier shares the operand structure (24bp rows)
     packed48 = pack_bicubic_rows_f48(*rows_pair, r)
-    hi48, lo48 = jax.jit(sharded_df_bicubic_packed(r, True, tier="f48"))(
-        *pairs, packed48, *qxp, *qyp
-    )
+    hi48, lo48 = jax.jit(
+        lambda *a: gathered_bicubic_eval_f48_packed(*a, r=r)
+    )(*pairs, packed48, *qxp, *qyp)
     assert hi48.sharding.spec[0] == "query", hi48.sharding
     np.testing.assert_allclose(
         df_to_f64(hi48, lo48), df_to_f64(whi, wlo), rtol=1e-5, atol=1e-5
@@ -540,14 +360,13 @@ def test_df_bicubic_route_under_mesh():
 
 
 def test_df_bicubic_node_route_under_mesh():
-    """The memory-frugal bicubic DF NODE partition rule with
-    query-sharded inputs vs the unsharded route."""
+    """The memory-frugal bicubic DF NODE route with query-sharded
+    inputs vs the unsharded route."""
     from ndarray_interp_tpu.ops.df import df_from_f64, df_to_f64
-    from ndarray_interp_tpu.ops.pallas_eval_df import (
+    from ndarray_interp_tpu.ops.df_eval import (
         gathered_bicubic_nodes_eval_df,
         pack_bicubic_nodes_df,
     )
-    from ndarray_interp_tpu.ops.partition import sharded_df_bicubic_nodes
 
     rng = np.random.default_rng(74)
     mesh1 = make_mesh(8, axis_names=("query",))
@@ -570,9 +389,9 @@ def test_df_bicubic_node_route_under_mesh():
     )
     qxp = [jax.device_put(jnp.asarray(w), q_sh) for w in df_from_f64(qx64)]
     qyp = [jax.device_put(jnp.asarray(w), q_sh) for w in df_from_f64(qy64)]
-    hi, lo = jax.jit(sharded_df_bicubic_nodes(r, True))(
-        *pairs, packed, *qxp, *qyp
-    )
+    hi, lo = jax.jit(
+        lambda *a: gathered_bicubic_nodes_eval_df(*a, r=r)
+    )(*pairs, packed, *qxp, *qyp)
     assert hi.sharding.spec[0] == "query", hi.sharding
     whi, wlo = gathered_bicubic_nodes_eval_df(
         *pairs, packed,
@@ -586,15 +405,15 @@ def test_df_bicubic_node_route_under_mesh():
 
 
 def test_df_nd_route_under_mesh():
-    """The ND DF partition rule (k axes) with query-sharded inputs vs
-    the unsharded route — tensor-product cubic (nbasis=4) on a 3-axis
-    grid with a trailing dim."""
+    """The ND DF route (k axes) with query-sharded inputs vs the
+    unsharded route — tensor-product cubic (nbasis=4) on a 3-axis grid
+    with a trailing dim."""
     from ndarray_interp_tpu.ops.df import df_from_f64, df_to_f64
-    from ndarray_interp_tpu.ops.pallas_eval_df_nd import (
+    from ndarray_interp_tpu.ops.df_eval import (
         gathered_nd_eval_df_packed,
         pack_rows_nd_df,
+        pack_rows_nd_f48,
     )
-    from ndarray_interp_tpu.ops.partition import sharded_df_nd_packed
 
     rng = np.random.default_rng(75)
     mesh1 = make_mesh(8, axis_names=("query",))
@@ -615,21 +434,17 @@ def test_df_nd_route_under_mesh():
         for w in df_from_f64(q):
             q_flat.append(jnp.asarray(w))
             q_shard.append(jax.device_put(jnp.asarray(w), q_sh))
-    hi, lo = jax.jit(sharded_df_nd_packed(k, sizes, r, interpret=True))(
-        *pairs, packed, *q_shard
-    )
-    assert hi.sharding.spec[0] == "query", hi.sharding
     route = gathered_nd_eval_df_packed(k, sizes, r, nbasis=4)
+    hi, lo = jax.jit(route)(*pairs, packed, *q_shard)
+    assert hi.sharding.spec[0] == "query", hi.sharding
     whi, wlo = jax.jit(route)(*pairs, packed, *q_flat)
     np.testing.assert_allclose(
         df_to_f64(hi, lo), df_to_f64(whi, wlo), rtol=1e-5, atol=1e-5
     )
-    # the ND f48 tier shares the rule's operand structure
-    from ndarray_interp_tpu.ops.pallas_eval_df_nd import pack_rows_nd_f48
-
+    # the ND f48 tier shares the operand structure
     packed48 = pack_rows_nd_f48(*rows_pair, 4**k, r)
     hi48, lo48 = jax.jit(
-        sharded_df_nd_packed(k, sizes, r, interpret=True, tier="f48")
+        gathered_nd_eval_df_packed(k, sizes, r, nbasis=4, tier="f48")
     )(*pairs, packed48, *q_shard)
     assert hi48.sharding.spec[0] == "query", hi48.sharding
     np.testing.assert_allclose(

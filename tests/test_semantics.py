@@ -95,28 +95,40 @@ class TestDtypes:
 
 
 class TestNonFiniteData:
-    """Non-finite DATA values (not queries) must never ride the one-hot
-    MXU selection paths (docs/PARITY.md D5): NaN*0 == NaN poisons
-    unrelated queries there.  The eager builder detects them and routes
-    to the gather/take formulation."""
+    """Non-finite DATA values (not queries) stay local: every route
+    fetches rows by gather, so a NaN/inf datum reaches only the queries
+    whose interval (or bank column) contains it (docs/PARITY.md D5)."""
 
     def test_builder_flags_nan_data(self):
-        d = np.array([0.0, 1.0, np.nan, 3.0, 4.0])
-        itp = Interp1D.builder(d).strategy(Linear().extrapolate(True)).build()
-        assert itp.strategy.finite is False
+        # a NaN in one bank column of a cubic bank leaves the other
+        # columns finite everywhere (the per-column solve is independent)
+        d = np.arange(24.0).reshape(8, 3) ** 1.5
+        d[4, 1] = np.nan
+        itp = Interp1D.builder(d).strategy(CubicSpline().extrapolate(True)).build()
+        out = np.asarray(itp.interp_array(np.linspace(-1.0, 8.0, 37)))
+        assert np.isfinite(out[:, [0, 2]]).all()
+        assert np.isnan(out[:, 1]).all()
 
     def test_builder_flags_inf_data_cubic(self):
-        d = np.array([0.0, 1.0, np.inf, 3.0, 4.0])
-        itp = (
-            Interp1D.builder(d)
-            .strategy(CubicSpline().extrapolate(True))
-            .build()
-        )
-        assert itp.strategy.finite is False
+        # f32 bank: same column locality on the single-precision route
+        d = (np.arange(40.0).reshape(10, 4) ** 1.2).astype(np.float32)
+        d[3, 2] = np.inf
+        itp = Interp1D.builder(d).strategy(CubicSpline().extrapolate(True)).build()
+        out = np.asarray(itp.interp_array(np.linspace(0.0, 9.0, 19, dtype=np.float32)))
+        assert np.isfinite(out[:, [0, 1, 3]]).all()
+        assert not np.isfinite(out[:, 2]).all()
 
     def test_builder_keeps_finite_flag_true(self):
-        itp = Interp1D.builder(np.arange(8.0)).build()
-        assert itp.strategy.finite is True
+        # pytree treedefs written with a second (routing-hint) aux entry
+        # still unflatten
+        from ndarray_interp_tpu.interp1d.cubic_spline import (
+            CubicSplineStrategy,
+        )
+
+        a = jnp.zeros((3,))
+        s = CubicSplineStrategy.tree_unflatten(("yes", False), (a, a))
+        assert s.mode == "yes"
+        assert Linear.tree_unflatten((True, False), ()).extrapolates
 
     def test_nan_datum_localizes_on_gather_path(self):
         # linear: a NaN datum must only affect its two adjacent intervals
@@ -127,18 +139,18 @@ class TestNonFiniteData:
         assert np.isnan(out[2:]).all()
 
     def test_onehot_gather_requires_finite(self):
-        # documents WHY the routing exists: the one-hot matmul formulation
-        # poisons every query when any table value is non-finite, while
-        # gather_rows with assume_finite=False stays exact
-        from ndarray_interp_tpu.ops.gather import _onehot_gather, gather_rows
+        # bilinear (packed corner rows): a NaN node poisons only the up to
+        # four cells that share it
+        from ndarray_interp_tpu.interp2d import Interp2D
 
-        tbl = jnp.asarray(np.arange(64.0, dtype=np.float32).reshape(8, 8))
-        tbl = tbl.at[5, 3].set(jnp.nan)
-        idx = jnp.array([0, 1, 2], dtype=jnp.int32)  # never selects row 5
-        poisoned = np.asarray(_onehot_gather(tbl, idx))
-        assert np.isnan(poisoned[:, 3]).all()
-        clean = np.asarray(gather_rows(tbl, idx, assume_finite=False))
-        np.testing.assert_array_equal(clean, np.asarray(tbl)[:3])
+        z = np.arange(36.0, dtype=np.float32).reshape(6, 6)
+        z[1, 1] = np.nan
+        itp = Interp2D.builder(z).build()
+        qx = np.array([0.5, 1.5, 4.5, 3.5], np.float32)
+        qy = np.array([0.5, 0.5, 4.5, 2.5], np.float32)
+        out = np.asarray(itp.interp_array(qx, qy))
+        assert np.isnan(out[:2]).all()
+        assert np.isfinite(out[2:]).all()
 
     def test_finite_flag_survives_pytree_roundtrip(self):
         import jax
@@ -147,7 +159,8 @@ class TestNonFiniteData:
         itp = Interp1D.builder(d).strategy(Linear().extrapolate(True)).build()
         leaves, treedef = jax.tree_util.tree_flatten(itp)
         back = jax.tree_util.tree_unflatten(treedef, leaves)
-        assert back.strategy.finite is False
+        out = np.asarray(back.interp_array(np.array([2.5, 0.5])))
+        assert np.isfinite(out[0]) and np.isnan(out[1])
 
 
 class TestAbortSemantics:
